@@ -66,8 +66,8 @@ int64_t pm_animated_frame(double t, int32_t n, const double* centers,
 
 // -- golden rasterizer (C10/C9 oracle; see piet_tpu/raster/) ---------------
 // Renders a wire-format scene buffer to RGBA8.  tile_w/tile_h parameterize
-// the binning geometry (16x16 matches the reference; 16x128 matches the TPU
-// default); cmd_capacity is the per-tile PTCL capacity.
+// the binning geometry (16x16 matches the reference; 32x128 is the
+// renderer's default); cmd_capacity is the per-tile PTCL capacity.
 // `out_rgba` must hold width*height*4 bytes.  Returns the total number of
 // overflowed (dropped) commands across tiles (0 = clean), or <0 on error.
 int64_t pm_render_golden(const uint8_t* scene_buf, int64_t scene_size,

@@ -153,7 +153,7 @@ struct TileEnc {
   void clear_solid() { solid_color = 0; }
 
   // ycull: the emitting stroke's hw + 0.5 in arg word 4 (unused by the
-  // fine math; the TPU kernel's row-cull threshold -- see ops/fine.py).
+  // fine math; kept in the wire format -- see ops/cmd_math.py).
   // Word 5: per-command inverse squared length (division-free fine math;
   // raster/ptcl.py::line mirror).
   void line(float x0, float y0, float x1, float y1, float ycull,

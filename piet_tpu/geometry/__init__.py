@@ -1,6 +1,6 @@
 """Host-side geometry: paths, Bezier flattening, SVG path parsing.
 
-TPU-native equivalent of the reference's kurbo usage + src/flatten.rs.
+The equivalent of the reference's kurbo usage + src/flatten.rs.
 """
 
 from .path import (Affine, BezPath, ClosePath, CurveTo, LineTo, MoveTo, Point,

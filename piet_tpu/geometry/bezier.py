@@ -94,7 +94,7 @@ def flatten_path(path: BezPath, tolerance: float) -> List[List[Point]]:
 
 
 # ---------------------------------------------------------------------------
-# Vectorized batch flattening (TPU-first addition, not in the reference):
+# Vectorized batch flattening (an addition, not in the reference):
 # flattening O(10k) curves one Python loop at a time is the kind of host
 # bottleneck the reference tolerated (it re-encoded only on resize,
 # PietRenderer.m:105-146); our animated-scene configs re-flatten per frame.

@@ -1,6 +1,6 @@
 """Layout codegen: single-source-of-truth packed struct layouts.
 
-TPU-native equivalent of the reference's piet-gpu-derive proc-macro system
+The equivalent of the reference's piet-gpu-derive proc-macro system
 (C5-C7 in SURVEY.md section 2)."""
 
 from .dsl import Enum, Field, Module, Ref, Scalar, Struct, Vector

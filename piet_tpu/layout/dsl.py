@@ -1,6 +1,6 @@
 """Layout DSL: single source of truth for packed GPU/wire struct layouts.
 
-TPU-native equivalent of the reference's ``piet_gpu!`` proc-macro system
+The equivalent of the reference's ``piet_gpu!`` proc-macro system
 (piet-gpu-derive/src/lib.rs): you declare structs and tagged-union enums
 once, and generators emit (a) a C++ header used by the native cc/ encoder,
 and (b) Python descriptors (numpy dtypes + unpack index arithmetic) used by

@@ -200,8 +200,8 @@ inline float decode(uint32_t code) {{
 // Deterministic linear -> sRGB encode: x^(1/2.4) as 2^(log2(x)/2.4) with
 // a bit-level exponent/mantissa split and polynomial log2/exp2 -- only
 // mul/add/floor/compare/bitcast, all exactly rounded and identical across
-// numpy / TPU / C++ (device sqrt/div are NOT IEEE-correctly rounded; see
-// scene/color.py::linear_to_srgb_det).  Mirrors that function
+// numpy / device / C++ (a device sqrt/div need not be correctly rounded;
+// see scene/color.py::linear_to_srgb_det).  Mirrors that function
 // operation-for-operation -- keep the order identical (and
 // -ffp-contract=off, set in cc/Makefile).
 inline const uint32_t kLogPolyBits[{n_pl}] = {{

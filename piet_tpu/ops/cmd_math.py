@@ -4,44 +4,30 @@ The per-command pixel math of the reference's ``renderKernel``
 (TestApp/PietRender.metal:457-566), expressed over (tile_h, tile_w) f32
 arrays with scalar operands, used by BOTH device implementations:
 
-* ops/fine.py      -- the Pallas TPU kernel (production path),
-* ops/fine_xla.py  -- the pure-XLA implementation (portable fallback and
-                      the bit-exact CPU test vehicle).
+* ops/fine.py      -- the Pallas GPU kernel (production path),
+* ops/fine_xla.py  -- the pure-XLA implementation (portable path and the
+                      CPU test vehicle).
 
-``bar`` is a best-effort FMA-contraction barrier: the numpy oracle
-(raster/cpu_fine.py) rounds every multiply and add separately.  On CPU,
-XLA's LLVM backend contracts at its own discretion, so CPU-side tests
-compare with a ~1e-5-of-pixels / <=2-code tolerance (tests/test_fine.py).
+``bar`` is an FMA-contraction barrier: the numpy oracle
+(raster/cpu_fine.py) rounds every multiply and add separately, so every
+product that feeds an add is wrapped in ``bar``.  The GPU kernel's ``bar``
+holds (the kernel is bitwise equal to the oracle on the H100); XLA:CPU's
+LLVM backend contracts at its own discretion inside large fusions, so
+CPU-side image tests carry a small tolerance (tests/_imgcmp.py).
 
-TPU numeric ground truth (measured, tools/mosaic_numerics_probe.py,
-round 4 -- supersedes earlier claims that div/sqrt were IEEE):
+Exactness is structural, not hoped for:
 
-* f32 multiply/add/sub, floor, compares, selects and bitcasts are
-  EXACTLY rounded, identical to numpy, and independent of vreg shape;
-  Mosaic does not contract mul+add at any tested tile shape.
-* f32 DIV and SQRT are NOT IEEE-correctly rounded: <= 2 ulp off RN on
-  ~1/3 of inputs (XLA:TPU and Mosaic agree bitwise with each other --
-  the hardware is deterministic and shape-independent, just not equal
-  to numpy's libm).
-
-Exactness policy: resolve-path transcendentals are made structural --
-sqrt via ieee_sqrt (exact-residual candidate selection, = np.sqrt by
-construction) and the sRGB encode via a mul/add/bitcast-only polynomial
-chain (srgb_encode_u32 / scene/color.py::linear_to_srgb_det).
-
-Round 5 closes the last gap -- the fill and line coverage DIVISIONS,
-whose <= 2 ulp device noise flipped 3/262144 channel codes at the
-production 32-row geometry (the round-4 interim contract): the per-pixel
-math is now DIVISION-FREE.  Every quotient the fine math needs is a
-per-COMMAND constant (fill slope m = dx/dy, area scale K = -dy/|dx|,
-line 1/|v|^2), computed once per record by the COARSE pass through
-``div_det`` -- a seed-independent exact-residual candidate selection
-(the ieee_sqrt construction applied to division) that the numpy oracle
-and the C++ golden mirror bitwise -- and shipped as operand words.  The
-per-pixel evaluators (fill_delta, line_field_sq) consume them with only
-multiplies/adds/min/max/selects, all exactly rounded and deterministic
-on TPU, so the fine kernel is bit-identical to the oracle at EVERY tile
-geometry by construction.
+* sqrt rides ``ieee_sqrt`` (exact-residual candidate selection, = np.sqrt
+  by construction, whatever the device's sqrt rounds to);
+* the sRGB encode is a mul/add/floor/bitcast-only polynomial chain
+  (srgb_encode_u32 / scene/color.py::linear_to_srgb_det);
+* the per-pixel math is DIVISION-FREE: every quotient the fine math needs
+  is a per-COMMAND constant (fill slope m = dx/dy, area scale
+  K = -dy/|dx|, line 1/|v|^2), computed once per record by the COARSE pass
+  through ``div_det`` -- a seed-independent exact-residual selection that
+  the numpy oracle and the C++ golden mirror bitwise -- and shipped as
+  operand words.  The per-pixel evaluators (fill_delta, line_field_sq)
+  use only multiplies/adds/min/max/selects.
 """
 
 from __future__ import annotations
@@ -60,42 +46,32 @@ def _saturate(v):
     return jnp.clip(v, 0.0, 1.0)
 
 
-# NOTE on winding-delta QUANTIZATION (tried in round 2, REVERTED):
-# rounding fill/edge deltas to multiples of 2^-13 makes f32 area
-# accumulation exact and hence order-free -- an attractive contract for
-# batched/tree-combined entry interpretation.  It is NOT achievable
-# bit-exactly on TPU: Mosaic lowers f32 division to multiply-by-
-# reciprocal whose reciprocal is NOT correctly rounded (measured:
-# num == den bitwise can divide to 0x3f7fffff; `a / b` equals
-# `a * rcp(b)` exactly, with rcp off-by-one-ulp on ~24% of inputs vs
-# IEEE), so a_cov/t0/t1 carry +-1 ulp of device-vs-oracle noise.  Any
-# rounding boundary AMPLIFIES that noise to a visible quantum (measured
-# 308/180k pixels off by one code at 16-row tiles).  Unquantized, the
-# same noise stays ~1e-7 in coverage and vanishes in the 8-bit output
-# (round-1 bit-exactness, re-verified).  Future reordering designs must
-# instead fix an explicit accumulation-tree order in the oracle and
-# replicate it on device -- agreement needs a SHARED order, not an
-# order-free one.
+# NOTE on winding-delta QUANTIZATION (tried and reverted): rounding
+# fill/edge deltas to multiples of 2^-13 makes f32 area accumulation exact
+# and order-free, but any rounding boundary AMPLIFIES 1-ulp device-vs-oracle
+# noise in the coverage inputs into a visible code.  Designs that reorder
+# the accumulation must instead fix an explicit accumulation-tree order in
+# the oracle and replicate it on device -- agreement needs a SHARED order,
+# not an order-free one.
 
 
 # -- Accumulation fields, factored out of the command evaluators so the
-# Pallas entry-stream kernel can apply them directly to its scratch
-# state (and accumulate the SQUARED line field, see line_field_sq).
+# Pallas kernel can apply them directly to its state (and accumulate the
+# SQUARED line field, see line_field_sq).
 
 
 def ieee_sqrt(x, bar):
     """IEEE-correctly-rounded f32 sqrt on every backend.
 
-    TPU sqrt is NOT correctly rounded (round-4 measurement: <= 2 ulp off
-    RN on ~1/3 of inputs; deterministic, but != numpy), which flips the u8
-    rounding of isolated boundary pixels wherever a resolve consumes a
-    sqrt (radial gradients, stroke distance, circles).  This wrapper makes
-    the device agree with the oracle BY CONSTRUCTION: take the hardware
-    estimate, step +-2 ulp, and pick the candidate minimizing |s^2 - x|
+    A device sqrt need not be correctly rounded, and a 1-ulp difference
+    flips the u8 rounding of isolated boundary pixels wherever a resolve
+    consumes a sqrt (radial gradients, stroke distance, circles).  This
+    wrapper makes the device agree with the oracle BY CONSTRUCTION: take
+    the hardware estimate, step +-2 ulp, and pick the candidate minimizing |s^2 - x|
     with the residual computed exactly (Dekker-split products are exact in
     f32; hi*hi - x is Sterbenz-exact) -- the result is seed-independent,
     so numpy's IEEE sqrt trivially lands on the same value and the oracle
-    keeps plain np.sqrt.  ~60 VPU ops; used only in resolve paths (never
+    keeps plain np.sqrt.  ~60 ops; used only in resolve paths (never
     per fill/line entry -- line distance accumulates SQUARED, see
     line_field_sq).
     """
@@ -107,7 +83,7 @@ def ieee_sqrt(x, bar):
     for delta in (-2, -1, 0, 1, 2):
         s = jax.lax.bitcast_convert_type(
             ub + jnp.uint32(delta & 0xFFFFFFFF), f32)
-        c = s * f32(4097.0)              # Dekker split (12 + 12 bits)
+        c = bar(s * f32(4097.0))         # Dekker split (12 + 12 bits)
         hi = c - bar(c - s)
         lo = s - hi
         # hi*hi, 2*hi*lo, lo*lo are all EXACT f32 products; hi*hi - x is
@@ -125,10 +101,9 @@ def ieee_sqrt(x, bar):
 def div_det(a, b, bar):
     """Deterministic shared f32 division: bitwise-equal on every backend.
 
-    TPU f32 div is a*rcp(b) with rcp NOT correctly rounded (<= 2 ulp off
-    RN on ~1/3 of inputs -- measured, tools/mosaic_numerics_probe.py),
-    while the numpy oracle divides IEEE.  This wrapper is the ieee_sqrt
-    construction applied to division: take the hardware quotient, step
+    A device division need not be correctly rounded (a*rcp(b) with an
+    approximate reciprocal), while the numpy oracle divides IEEE.  This
+    wrapper is the ieee_sqrt construction applied to division: take the hardware quotient, step
     +-3 representation neighbors, and pick the candidate minimizing
     |a - q*b| with the residual computed through exact Dekker-split
     products (12+12-bit halves multiply exactly; a - qh*bh is
@@ -139,7 +114,7 @@ def div_det(a, b, bar):
     exactly V-shaped in q with a full inter-candidate step of slope, so
     the computed argmin always lands on one of the two representable
     neighbors of the true quotient; any seed within 2 ulp of the truth
-    (device rcp error bound; the oracle's IEEE seed trivially) has both
+    (the device's error bound; the oracle's IEEE seed trivially) has both
     neighbors inside its +-3 window, and the residual comparison itself
     is built only from exactly-rounded ops -- the same function of
     (a, b, q) on every backend.  Both sides therefore select the same
@@ -152,21 +127,19 @@ def div_det(a, b, bar):
     """
     f32 = jnp.float32
     q0 = a / b
-    cb = b * f32(4097.0)                 # Dekker split of b (shared)
+    cb = bar(b * f32(4097.0))            # Dekker split of b (shared)
     bh = cb - bar(cb - b)
     bl = b - bh
     u0 = jax.lax.bitcast_convert_type(q0, jnp.uint32)
     best_q = q0
     best_r = jnp.full_like(q0, jnp.inf)
-    # Evenness rides as f32 0/1, not bool: a SELECT on boolean vectors
-    # trips a Mosaic i8->i1 truncation inside Pallas kernels (this
-    # function runs in ops/hitfuse.py); `ev > best_ev` == the candidate
-    # is even and the incumbent odd -- exactly `even & ~best_even`.
+    # Evenness rides as f32 0/1; `ev > best_ev` == the candidate is even
+    # and the incumbent odd -- exactly `even & ~best_even`.
     best_ev = jnp.zeros_like(q0)
     for delta in (-3, -2, -1, 0, 1, 2, 3):
         uq = u0 + jnp.uint32(delta & 0xFFFFFFFF)
         q = jax.lax.bitcast_convert_type(uq, f32)
-        cq = q * f32(4097.0)
+        cq = bar(q * f32(4097.0))
         qh = cq - bar(cq - q)
         ql = q - qh
         r = jnp.abs((((a - bar(qh * bh)) - bar(qh * bl)) - bar(ql * bh))
@@ -201,7 +174,7 @@ def dot2_det(x, y, bar):
     f32 = jnp.float32
 
     def sq(v):
-        c = v * f32(4097.0)
+        c = bar(v * f32(4097.0))
         h = c - bar(c - v)
         l = v - h
         return bar(h * h), bar(f32(2.0) * bar(h * l)), bar(l * l)
@@ -295,10 +268,20 @@ def edge_delta(arg, Y, bar):
     return bar(sgn * _saturate(Y - ye + 1.0))
 
 
+def round_half_even(x):
+    """Round to nearest, ties to even (= jnp.round / np.round), from floor
+    and exact f32 steps only: x - floor(x) and the parity test are exact,
+    and the Pallas Triton route has no rounding primitive."""
+    f = jnp.floor(x)
+    d = x - f
+    odd = (f - 2.0 * jnp.floor(0.5 * f)) != 0.0
+    return f + jnp.where((d > 0.5) | ((d == 0.5) & odd), 1.0, 0.0)
+
+
 def clip_alpha(x, even_odd, bar):
     """Winding -> coverage (the DrawFill alpha formula, also used by
     BeginClip): nonzero rule min(|x|, 1) or even-odd |x - 2 round(x/2)|."""
-    eo = jnp.abs(x - 2.0 * jnp.round(0.5 * x))
+    eo = jnp.abs(x - 2.0 * round_half_even(0.5 * x))
     nz = jnp.minimum(jnp.abs(x), 1.0)
     return jnp.where(even_odd != 0.0, eo, nz)
 
@@ -449,9 +432,7 @@ def srgb_encode_u32(ch, bar):
     there for the precision-policy rationale); keep the three in sync.
     x^(1/2.4) is 2^(log2(x)/2.4) with bit-level exponent/mantissa split and
     polynomial log2/exp2: ONLY mul/add/floor/compare/bitcast, all exactly
-    rounded and shape-independent on TPU (tools/mosaic_numerics_probe.py)
-    -- device sqrt/div are NOT IEEE-correctly rounded (round-4 finding),
-    so the previous sqrt+Newton chain flipped boundary-pixel codes.
+    rounded on every backend (a device sqrt or division need not be).
     """
     from ..scene.color import SRGB_PE, SRGB_PL
     f32 = jnp.float32
@@ -476,9 +457,8 @@ def srgb_encode_u32(ch, bar):
         pe = bar(pe * fr) + f32(c)
     hi = bar(f32(1.055) * (s * pe)) - f32(0.055)
     srgb = jnp.where(ch < 0.0031308, lo, hi)
-    # Mosaic has no direct f32->u32 cast; values are in [0, 255] so
-    # rounding through i32 is exact.
-    return jnp.round(srgb * 255.0).astype(jnp.int32).astype(jnp.uint32)
+    # Values are in [0, 255], so the cast through i32 is exact.
+    return round_half_even(srgb * 255.0).astype(jnp.int32).astype(jnp.uint32)
 
 
 def pack_rgba8(r, g, b, bar):

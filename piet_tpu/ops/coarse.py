@@ -1,12 +1,12 @@
 """XLA coarse rasterizer: sort-based device binning (Scene -> PTCL arrays).
 
-TPU-native replacement for the reference's ``tileKernel``
+The replacement for the reference's ``tileKernel``
 (PietRender.metal:160-454).  The reference's core parallel pattern is a SIMT
 cooperative ballot: threads vote on surviving segments in a threadgroup
-bitmap, then serially walk set bits (PietRender.metal:191-213,254-305).  That
-idiom exists to skip work under divergence; TPU has no divergence, so the
-same O(hits) goal is reached with dense vectorized math + expansion + one
-sort (SURVEY.md section 7, translation decision 4):
+bitmap, then serially walk set bits (PietRender.metal:191-213,254-305).
+Here the same O(hits) goal is reached with dense vectorized math +
+expansion + one sort, all plain XLA (SURVEY.md section 7, translation
+decision 4):
 
   1. segment derivation  -- every item's segments as flat arrays (gathers)
   2. rect expansion      -- per segment, the conservative rectangle of tiles
@@ -49,15 +49,14 @@ tests/test_coarse.py.
 
 from __future__ import annotations
 
-import os
 from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
 
 from ..layout.entry_stream import (ENTRY_WORDS, META_CLEAR_BIT,
-                                   META_NCMDS_MASK, META_OPAQUE_BIT, RUN_CAP,
-                                   W_BAIL, W_META, W_RUN, W_S0_TAG, W_S1_TAG)
+                                   META_NCMDS_MASK, META_OPAQUE_BIT,
+                                   W_BAIL, W_META)
 from ..raster.ptcl import (ARG_WORDS, CMD_CIRCLE, CMD_DRAW_FILL, CMD_FILL,
                            CMD_FILL_EDGE, CMD_LINE, CMD_SOLID, CMD_STROKE)
 from .cmd_math import div_det, dot2_det
@@ -69,66 +68,17 @@ from ..scene.scene import (FLAG_BRUSH_LINEAR, FLAG_BRUSH_RADIAL,
                            FLAG_IN_GROUP, FLAG_POP_LAYER, TAG_CIRCLE,
                            TAG_CLIP, TAG_FILL, TAG_LAYER, TAG_LINE, TAG_POLY,
                            TAG_POP)
-from .expand import expand_rows, expand_rows_xla
-from .gatherm import gather_monotone
-from .candfuse import cand_records_fused
-from .hitfuse import hit_records_fused
-from .keyed import keyed_sum, keyed_sum_xla
+from .expand import expand_rows_xla
+from .keyed import keyed_sum_xla
 from .pairing import pair_entries
 from .sort import stable_sort_multi
 
-#: The coarse pass's opt-in MXU/Pallas engines.
-ENGINES = frozenset({"expand", "keyed", "gatherm"})
-#: What the "pallas" convenience alias enables.  gatherm is EXCLUDED:
-#: combining it with the expansion engine in one executable corrupts a
-#: downstream XLA scatter on real hardware (round 4, deterministic 698
-#: wrong cand_emit sums with bit-identical materialized inputs; survives
-#: fully synchronous engine DMA and explicit input barriers -- an
-#: upstream XLA:TPU buffer/codegen bug, minimal repro
-#: tools/eng_array_probe.py).  Every SUPPORTED combination is pinned
-#: bit-identical to the XLA path on chip (tools/eng_bisect_probe.py).
-ENGINES_DEFAULT = frozenset({"expand", "keyed"})
-
-
-def engine_set(expand_impl: str) -> tuple[frozenset, bool]:
-    """Parse an ``expand_impl`` string into (enabled engines, interpret).
-
-    "xla" -> none; "pallas" -> the supported default set (expand, keyed);
-    "pallas_interpret" -> same in Mosaic interpret mode (the CPU test
-    vehicle); "pallas:a,b" -> a subset by name -- the on-chip bisect
-    vehicle (tools/eng_bisect_probe.py).  The expand+gatherm combination
-    is rejected (see ENGINES_DEFAULT).
-    """
-    if expand_impl in ("pallas", "pallas_interpret"):
-        return ENGINES_DEFAULT, expand_impl == "pallas_interpret"
-    interp = expand_impl.startswith("pallas_interpret:")
-    if interp:
-        expand_impl = "pallas:" + expand_impl[len("pallas_interpret:"):]
-    if expand_impl.startswith("pallas:"):
-        sub = frozenset(filter(None, expand_impl[7:].split(",")))
-        unknown = sub - ENGINES
-        if unknown:
-            raise ValueError(f"unknown coarse engines: {sorted(unknown)}")
-        if {"expand", "gatherm"} <= sub:
-            raise ValueError(
-                "expand+gatherm in one executable corrupts a downstream "
-                "XLA scatter on TPU (measured, round 4; see "
-                "ops/coarse.py::ENGINES_DEFAULT) -- use them separately")
-        return sub, interp
-    return frozenset(), False
-
-
-# Barriers after the expansion/gather outputs keep XLA:TPU from fusing
-# downstream elementwise work INTO the (scalar-executed) gather loops --
-# measured 7.32 -> 6.70 ms coarse at 4K tiger (ROADMAP).  Opt out with
-# PIET_DENSE_BARRIERS=0.
-_DENSE_BARRIERS = os.environ.get("PIET_DENSE_BARRIERS", "1") == "1"
-
-
 def _db(*xs):
-    """Barrier each array when the dense-barriers experiment is on."""
-    if not _DENSE_BARRIERS:
-        return xs if len(xs) > 1 else xs[0]
+    """Barrier the expansion/gather outputs: XLA then cannot fuse the
+    downstream record math into the gathers.  Measured on an H100 (400 W
+    limit) it is as fast or faster than without, and without it XLA:GPU
+    contracts mul+add across the gather boundary, changing the 4K tiger's
+    entry stream."""
     out = jax.lax.optimization_barrier(xs)
     return out if len(xs) > 1 else out[0]
 
@@ -160,12 +110,11 @@ class CoarseEntries(NamedTuple):
     """Entry-stream PTCL: the sorted (tile, item)-grouped records themselves,
     with per-tile index ranges -- no per-tile capacity, no scatter.
 
-    ``stream`` packs entries 128 per block for the fine kernel's DMA:
-    entry e lives at block e // 128, lane e % 128; the ENTRY_WORDS word
-    sublanes follow the single-source word map in layout/entry_stream.py
+    ``stream`` holds one ENTRY_WORDS-word row per entry (64 contiguous
+    bytes), words per the single-source map in layout/entry_stream.py
     (slot0 = FillEdge|Line|tail command, slot1 = Fill; tag 0 = empty slot).
     """
-    stream: jax.Array       # (E/128, 16, 128) f32
+    stream: jax.Array       # (E, ENTRY_WORDS) f32
     first: jax.Array        # (T,) int32 first live entry (post bail-reset)
     n_entries: jax.Array    # (T,) int32 live entries
     counts: jax.Array       # (T,) int32 live commands (diagnostics)
@@ -188,17 +137,14 @@ def _exclusive_cumsum(x):
 
 
 def _fdivmod(local: jax.Array, w: jax.Array):
-    """Exact floor-div/mod of small nonneg ints via f32 (vector units).
+    """Exact floor-div/mod of small nonneg ints via f32 division.
 
-    Integer div/mod by a non-constant vector lowers to the TPU scalar
-    core (~15+ cycles/element -- a measured hot spot of the record
-    machinery); f32 division is a VPU op.  The raw quotient would be
-    exact under correctly-rounded division (local < 2^23), but TPU
-    lowers f32 division through a reciprocal approximation that can be
-    1 ulp off -- fatal at exact multiples, where floor() turns 1 ulp
-    into an off-by-one.  The residue fixup below makes the pair exact
-    for ANY division error < 1 quotient step: correct q is the unique
-    integer with 0 <= local - q*w < w.  ``w`` must be >= 1."""
+    The raw quotient would be exact under correctly-rounded division
+    (local < 2^23), but a backend may divide through a reciprocal
+    approximation that is 1 ulp off -- fatal at exact multiples, where
+    floor() turns 1 ulp into an off-by-one.  The residue fixup below makes
+    the pair exact for ANY division error < 1 quotient step: correct q is
+    the unique integer with 0 <= local - q*w < w.  ``w`` must be >= 1."""
     wf = w.astype(jnp.float32)
     q = jnp.floor(local.astype(jnp.float32) / wf).astype(jnp.int32)
     r = local - q * w
@@ -245,29 +191,15 @@ def coarse_rasterize(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
                      tile_w: int, tile_h: int, cmd_capacity: int,
                      max_segments: int, max_hits: int, max_candidates: int,
                      max_deltas: int = 0, row0=0,
-                     output: str = "dense", sort_impl: str = "auto",
-                     expand_impl: str = "xla", pair="compact",
-                     hitfuse: str = "off",
+                     output: str = "dense", pair="compact",
                      with_probes: bool = False) -> CoarseOutput:
     """row0: first tile row of this shard's slab (traced OK); tiles_y is
     the number of LOCAL rows.  Defaults cover the whole viewport.
-
-    expand_impl: "pallas" = the MXU expansion/gather engines
-    (ops/expand.py, ops/keyed.py, ops/gatherm.py; real-TPU only),
-    "pallas:expand,keyed" = a named subset (the bisect vehicle),
-    "xla" = the portable scatter+cummax+gather path.  Outputs are
-    bit-identical (pinned on chip by tools/engine_probe.py).
 
     pair: entry pairing (ops/pairing.py): False/"off" disables,
     True/"compact" merges and compacts the stream, "hole" merges and
     leaves zeroed no-op seconds in place (no compaction cost; the holes
     cost only the fine kernel's dispatch floor).
-
-    hitfuse: "pallas" = the fused hit-record kernel (ops/hitfuse.py):
-    expansion + exact tests + entry-row assembly in one Pallas pass,
-    records in VMEM (real-TPU only; "pallas_interpret" = CPU test
-    vehicle).  Entries output + packed sort key only; bit-identical to
-    the staged XLA path (tests/test_hitfuse.py).
 
     with_probes=True adds ``diag["probes"]``: an ordered dict of cheap
     scalars, one per pipeline stage, each forcing exactly that stage's
@@ -284,14 +216,7 @@ def coarse_rasterize(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
     probes = {}
 
     def stage_probe(name, *vals):
-        if with_probes == "arrays":
-            # Debug capture: the RAW stage arrays land in diag["probes"]
-            # (engine-bisect vehicle -- f32 probe SUMS of large arrays
-            # alias real divergences into reduction-order noise, round-4
-            # finding).  Test/probe only: big, and defeats fusion.
-            for i, v in enumerate(vals):
-                probes[f"{name}:{i}"] = v
-        elif with_probes:
+        if with_probes:
             probes[name] = sum(jnp.sum(v, dtype=jnp.float32) for v in vals)
 
     item_ids = jnp.arange(NI, dtype=jnp.int32)
@@ -301,25 +226,7 @@ def coarse_rasterize(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
     def i2f(x):
         return jax.lax.bitcast_convert_type(x.astype(jnp.int32), f32)
 
-    engines, eng_interp = engine_set(expand_impl)
-
-    def exp_rows(rows, counts, cap, excl):
-        """Ragged expansion + row gather: the MXU engine on TPU, the XLA
-        scatter+cummax+gather elsewhere; outputs bit-identical (dead
-        slots carry all-zero rows on BOTH paths)."""
-        if "expand" in engines:
-            return expand_rows(rows, counts, cap, excl,
-                               interpret=eng_interp)
-        return expand_rows_xla(rows, counts, cap, excl)
-
-    def ksum(values, keys, lo_b, hi_b, n_out):
-        """Keyed integer sum (ops/keyed.py): MXU histogram on TPU, XLA
-        segment_sum elsewhere; bit-identical (integer sums < 2^24 are
-        order-free exact in f32)."""
-        if "keyed" in engines:
-            return keyed_sum(values, keys, lo_b, hi_b, n_out,
-                             interpret=eng_interp)
-        return keyed_sum_xla(values, keys, lo_b, hi_b, n_out)
+    exp_rows = expand_rows_xla
 
     # ---- item bbox tile rects + candidate expansion -------------------
     bx0, by0, bx1, by1, bw, bh = _item_tile_rect(
@@ -344,36 +251,21 @@ def coarse_rasterize(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
          i2f(item_ids)[:, None],
          scene.grads[:, :7]],                            # gradient payload
         axis=1)                                          # (NI, 32)
-    # Fused-kernel gating, shared by the candidate and hit stages (the
-    # packed sort key the hit kernel emits needs packed_ok).
     stride = 2 * (NI + 1)
     packed_ok = n_tiles * stride < 2**24
-    use_hitfuse = hitfuse != "off" and output == "entries" and packed_ok
-    if use_hitfuse:
-        # Fused candidate expansion + rect decode (ops/candfuse.py).
-        ca, ctile_f, cty_f, ctx_f = _db(*cand_records_fused(
-            cand_pack, cand_counts, cand_excl, n_cand, row0,
-            max_candidates, tiles_x=tiles_x,
-            interpret=hitfuse == "pallas_interpret"))
-        cand_ty = cty_f.astype(jnp.int32)
-        cand_tx = ctx_f.astype(jnp.int32)
-        cand_tile = ctile_f.astype(jnp.int32)
-    else:
-        ca = _db(exp_rows(cand_pack, cand_counts, max_candidates,
-                          cand_excl))
+    ca = _db(exp_rows(cand_pack, cand_counts, max_candidates, cand_excl))
     cf = ca[:, :15]
     ci = jax.lax.bitcast_convert_type(ca[:, 15:24], jnp.int32)
     cg = ca[:, 25:32]      # gradient payload (params3 + c1 linear rgba)
     cand_idx = jnp.arange(max_candidates, dtype=jnp.int32)
     cand_valid = cand_idx < n_cand
     cand_item = jax.lax.bitcast_convert_type(ca[:, 24], jnp.int32)
-    if not use_hitfuse:
-        cand_local = cand_idx - ci[:, 3]
-        cand_w = jnp.maximum(ci[:, 8], 1)
-        c_dy, c_dx = _fdivmod(cand_local, cand_w)
-        cand_ty = ci[:, 5] + c_dy
-        cand_tx = ci[:, 4] + c_dx
-        cand_tile = (cand_ty - row0) * tiles_x + cand_tx
+    cand_local = cand_idx - ci[:, 3]
+    cand_w = jnp.maximum(ci[:, 8], 1)
+    c_dy, c_dx = _fdivmod(cand_local, cand_w)
+    cand_ty = ci[:, 5] + c_dy
+    cand_tx = ci[:, 4] + c_dx
+    cand_tile = (cand_ty - row0) * tiles_x + cand_tx
     stage_probe("cand_expand", cand_tile)
 
     sp = getattr(scene, "seg_pre", None)
@@ -381,8 +273,7 @@ def coarse_rasterize(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
         # ---- segment derivation ------------------------------------------
         # Fill items: n wrap-around segments; poly: n-1; line: 1; circle: 0.
         # All per-item attributes a segment needs ride one expansion row
-        # (separate 1-D gathers price per gather op on the scalar core: 15
-        # gathers at 128k indices cost ~30 ms; one packed expansion ~0.1 ms).
+        # instead of one 1-D gather per attribute.
         is_fill_item = (tags == TAG_FILL) | (tags == TAG_CLIP)
         seg_counts = jnp.where(
             is_fill_item, scene.n_pts,
@@ -419,33 +310,18 @@ def coarse_rasterize(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
         i0 = s_ptoff + seg_local
         s_is_fill_tag = (s_tag == TAG_FILL) | (s_tag == TAG_CLIP)
         wrap = s_is_fill_tag & (seg_local + 1 == s_npts)
-        if "gatherm" in engines:
-            # Endpoint fetch on the monotone-gather engine (ops/gatherm.py):
-            # i0 is nondecreasing across live segments (items in encode
-            # order, each walking its point block front to back), and so is
-            # i0 + 1; the only non-monotone endpoint -- the fill wrap-around
-            # i1 = pt_offset -- comes from the carried per-item first point.
-            # Dead slots pin to np_max (monotone; gathered row unused).
-            i0_g = jnp.where(seg_valid, jnp.clip(i0, 0, np_max), np_max)
-            j1_g = jnp.where(seg_valid, jnp.clip(i0 + 1, 0, np_max), np_max)
-            p0e, p1n = gather_monotone(
-                scene.points, (i0_g, j1_g), interpret=eng_interp)
-            p1e = jnp.where(wrap[:, None], sitem_f[:, 12:14], p1n)
-        else:
-            # ONE row gather delivers both endpoints: pair_rows[k] =
-            # (pt_k, pt_{k+1}), p1 from the +1 column, the fill wrap-around
-            # from the carried per-item first point (bit-identical to
-            # points[where(wrap, ptoff, i0+1)] -- the carried word IS
-            # points[ptoff]).  Two separate 2-word-row gathers measured
-            # 5.1 ms at beziers_10k's 203k segments (round-4 profile,
-            # seg_points); row-gather cost is per ROW, so pairing halves it
-            # and the wider row vectorizes better.
-            nxt = jnp.concatenate([scene.points[1:], scene.points[-1:]],
-                                  axis=0)
-            pair_rows = jnp.concatenate([scene.points, nxt], axis=1)
-            pr = pair_rows[jnp.clip(i0, 0, np_max)]
-            p0e = pr[:, 0:2]
-            p1e = jnp.where(wrap[:, None], sitem_f[:, 12:14], pr[:, 2:4])
+        # ONE row gather delivers both endpoints: pair_rows[k] =
+        # (pt_k, pt_{k+1}), p1 from the +1 column, the fill wrap-around
+        # from the carried per-item first point (bit-identical to
+        # points[where(wrap, ptoff, i0+1)] -- the carried word IS
+        # points[ptoff]): one gather of 4-word rows instead of two of
+        # 2-word rows.
+        nxt = jnp.concatenate([scene.points[1:], scene.points[-1:]],
+                              axis=0)
+        pair_rows = jnp.concatenate([scene.points, nxt], axis=1)
+        pr = pair_rows[jnp.clip(i0, 0, np_max)]
+        p0e = pr[:, 0:2]
+        p1e = jnp.where(wrap[:, None], sitem_f[:, 12:14], pr[:, 2:4])
         # Dead slots zero on BOTH paths so every downstream word (and the
         # profiler's stage probes) is impl-independent.
         p0, p1 = _db(jnp.where(seg_valid[:, None], p0e, 0.0),
@@ -590,11 +466,10 @@ def coarse_rasterize(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
         # -- bitwise-identical to the derivation above; the arrays were
         # built once at scene staging, so a static scene's frame skips
         # the endpoint gathers, line equations, rect solves and the
-        # division-constant selection entirely (round 5; measured 0.7 ms
-        # of the 4K tiger frame, 2.5 ms of beziers_10k).
-        # uint32 -> f32 bitcast: the table ships as bit patterns
-        # (denormal-pattern f32 words were flushed somewhere inside the
-        # fused TPU graph when uploaded as f32 -- see SegPre docstring).
+        # division-constant selection entirely.
+        # uint32 -> f32 bitcast: the table ships as bit patterns (a
+        # denormal flush on the way would zero integer payloads uploaded
+        # as f32 -- see SegPre docstring).
         seg_rows = jax.lax.bitcast_convert_type(sp.seg_rows, f32)
         seg_all = seg_rows[:, :26]
         hit_counts = sp.hit_counts
@@ -615,186 +490,140 @@ def coarse_rasterize(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
 
     hit_idx = jnp.arange(max_hits, dtype=jnp.int32)
     hit_valid = hit_idx < n_hits
-    if use_hitfuse:
-        # Fused hit-record pipeline (ops/hitfuse.py): expansion + exact
-        # tests + entry rows + sort key in ONE Pallas kernel, records in
-        # VMEM end to end -- replaces the staged expansion / decode /
-        # test / assembly chain below (bit-identical either way,
-        # tests/test_hitfuse.py).
-        fused = hit_records_fused(
-            seg_rows,
-            hit_counts, hit_excl, n_hits, row0, max_hits,
-            tile_w=tile_w, tile_h=tile_h, tiles_x=tiles_x, stride=stride,
-            interpret=hitfuse == "pallas_interpret")
-        fused = {k: _db(v) for k, v in fused.items()}
-        hit_n_cmds = fused["n_cmds"].astype(jnp.int32)
-        h_cand = fused["h_cand"].astype(jnp.int32)
-        stage_probe("hit_gather", fused["h_cand"])
-        stage_probe("hit_tests", fused["rows"], fused["n_cmds"])
-        klo = jnp.where(hit_valid, fused["cexcl"].astype(jnp.int32),
-                        max_candidates)
-        khi = jnp.where(hit_valid, fused["cand_end"].astype(jnp.int32),
-                        max_candidates + 1)
-        cand_emit = ksum(fused["n_cmds"][:, None], h_cand, klo, khi,
-                         max_candidates)[:, 0].astype(jnp.int32)
-    else:
-        ha = _db(exp_rows(seg_rows, hit_counts, max_hits, hit_excl))
-        hf = ha[:, :12]
-        hi = jax.lax.bitcast_convert_type(ha[:, 12:23], jnp.int32)
-        h_invd, h_m, h_K = ha[:, 23], ha[:, 24], ha[:, 25]
-        hit_local = hit_idx - jax.lax.bitcast_convert_type(ha[:, 26], jnp.int32)
-        h_flags = hi[:, 0]
-        h_w = jnp.maximum(hi[:, 3], 1)
-        h_dy, h_dx = _fdivmod(hit_local, h_w)
-        h_ty = hi[:, 2] + h_dy
-        h_tx = hi[:, 1] + h_dx
-        h_item = hi[:, 4]
-        h_tile = (h_ty - row0) * tiles_x + h_tx
-        h_cand = hi[:, 5] + (h_ty - hi[:, 6]) * hi[:, 7] + (h_tx - hi[:, 8])
-        stage_probe("hit_gather", h_tile, h_cand)
+    ha = _db(exp_rows(seg_rows, hit_counts, max_hits, hit_excl))
+    hf = ha[:, :12]
+    hi = jax.lax.bitcast_convert_type(ha[:, 12:23], jnp.int32)
+    h_invd, h_m, h_K = ha[:, 23], ha[:, 24], ha[:, 25]
+    hit_local = hit_idx - jax.lax.bitcast_convert_type(ha[:, 26], jnp.int32)
+    h_flags = hi[:, 0]
+    h_w = jnp.maximum(hi[:, 3], 1)
+    h_dy, h_dx = _fdivmod(hit_local, h_w)
+    h_ty = hi[:, 2] + h_dy
+    h_tx = hi[:, 1] + h_dx
+    h_item = hi[:, 4]
+    h_tile = (h_ty - row0) * tiles_x + h_tx
+    h_cand = hi[:, 5] + (h_ty - hi[:, 6]) * hi[:, 7] + (h_tx - hi[:, 8])
+    stage_probe("hit_gather", h_tile, h_cand)
 
-        # ---- exact per-record tests (f32, identical to cpu_tiler.py) ------
-        x0f = h_tx.astype(f32) * twf
-        y0f = h_ty.astype(f32) * thf
-        h_sx, h_sy, h_ex, h_ey = hf[:, 0], hf[:, 1], hf[:, 2], hf[:, 3]
-        h_a, h_b, h_c = hf[:, 4], hf[:, 5], hf[:, 6]
-        h_xmn = hf[:, 7:9]
-        h_xmx = hf[:, 9:11]
-        h_is_fill = ((h_flags & 1) != 0) & hit_valid
-        h_is_stroke = ((h_flags & 2) != 0) & hit_valid
+    # ---- exact per-record tests (f32, identical to cpu_tiler.py) ------
+    x0f = h_tx.astype(f32) * twf
+    y0f = h_ty.astype(f32) * thf
+    h_sx, h_sy, h_ex, h_ey = hf[:, 0], hf[:, 1], hf[:, 2], hf[:, 3]
+    h_a, h_b, h_c = hf[:, 4], hf[:, 5], hf[:, 6]
+    h_xmn = hf[:, 7:9]
+    h_xmx = hf[:, 9:11]
+    h_is_fill = ((h_flags & 1) != 0) & hit_valid
+    h_is_stroke = ((h_flags & 2) != 0) & hit_valid
 
-        # Fill tests (PietRender.metal:307-354).
-        ycull = (h_xmx[:, 1] >= y0f) & (h_xmn[:, 1] < y0f + thf)
-        left = _bar(h_a * x0f)
-        right = _bar(h_a * (x0f + twf))
-        ytop = jnp.maximum(y0f, h_xmn[:, 1])
-        ybot = jnp.minimum(y0f + thf, h_xmx[:, 1])
-        top = _bar(h_b * ytop)
-        bot = _bar(h_b * ybot)
-        s00 = _sign(top + left + h_c)
-        s01 = _sign(top + right + h_c)
-        s10 = _sign(bot + left + h_c)
-        s11 = _sign(bot + right + h_c)
-        four = s00 * s01 + s00 * s10 + s00 * s11 < f32(3.0)
-        crosses_left = (h_xmn[:, 0] < x0f) & (h_xmx[:, 0] > x0f)
-        # div_det: the FillEdge intercept is a PTCL operand, so the
-        # division must match the numpy oracle bitwise (cpu_tiler.py uses
-        # div_det_np); raw device division is <= 2 ulp off IEEE.
-        t_edge = div_det(h_sx - x0f, h_b, _bar)
-        y_edge = h_sy + _bar((h_ey - h_sy) * t_edge)
-        edge_in = crosses_left & (y_edge >= y0f) & (y_edge < y0f + thf)
-        plain = ((crosses_left & ~edge_in & four)
-                 | (~crosses_left & four & (h_xmn[:, 0] < x0f + twf)
-                    & (h_xmx[:, 0] > x0f)))
+    # Fill tests (PietRender.metal:307-354).
+    ycull = (h_xmx[:, 1] >= y0f) & (h_xmn[:, 1] < y0f + thf)
+    left = _bar(h_a * x0f)
+    right = _bar(h_a * (x0f + twf))
+    ytop = jnp.maximum(y0f, h_xmn[:, 1])
+    ybot = jnp.minimum(y0f + thf, h_xmx[:, 1])
+    top = _bar(h_b * ytop)
+    bot = _bar(h_b * ybot)
+    s00 = _sign(top + left + h_c)
+    s01 = _sign(top + right + h_c)
+    s10 = _sign(bot + left + h_c)
+    s11 = _sign(bot + right + h_c)
+    four = s00 * s01 + s00 * s10 + s00 * s11 < f32(3.0)
+    crosses_left = (h_xmn[:, 0] < x0f) & (h_xmx[:, 0] > x0f)
+    # div_det: the FillEdge intercept is a PTCL operand, so the
+    # division must match the numpy oracle bitwise (cpu_tiler.py uses
+    # div_det_np); raw device division is <= 2 ulp off IEEE.
+    t_edge = div_det(h_sx - x0f, h_b, _bar)
+    y_edge = h_sy + _bar((h_ey - h_sy) * t_edge)
+    edge_in = crosses_left & (y_edge >= y0f) & (y_edge < y0f + thf)
+    plain = ((crosses_left & ~edge_in & four)
+             | (~crosses_left & four & (h_xmn[:, 0] < x0f + twf)
+                & (h_xmx[:, 0] > x0f)))
 
-        fill_emit_edge = h_is_fill & ycull & edge_in
-        fill_emit_plain = h_is_fill & ycull & plain
+    fill_emit_edge = h_is_fill & ycull & edge_in
+    fill_emit_plain = h_is_fill & ycull & plain
 
-        # Clipped fill coords for the left-edge crossing (:339-344).
-        # (The clipped end-x is NOT shipped: the fill math needs only
-        # [sx, sy, ey] plus the per-segment m/K constants.)
-        clip_sx = jnp.where(h_b > 0, h_sx, x0f)
-        clip_sy = jnp.where(h_b > 0, h_sy, y_edge)
-        clip_ey = jnp.where(h_b > 0, y_edge, h_ey)
+    # Clipped fill coords for the left-edge crossing (:339-344).
+    # (The clipped end-x is NOT shipped: the fill math needs only
+    # [sx, sy, ey] plus the per-segment m/K constants.)
+    clip_sx = jnp.where(h_b > 0, h_sx, x0f)
+    clip_sy = jnp.where(h_b > 0, h_sy, y_edge)
+    clip_ey = jnp.where(h_b > 0, y_edge, h_ey)
 
-        # Stroke tests (:411-435 for polys; :223-247 for lines -- the line case
-        # has no segment bbox cull, matching the reference).
-        h_hw = hf[:, 11]
-        st_bcull = ((h_xmx[:, 1] > y0f - h_hw) & (h_xmn[:, 1] < y0f + thf + h_hw)
-                    & (h_xmx[:, 0] > x0f - h_hw) & (h_xmn[:, 0] < x0f + twf + h_hw))
-        st_bcull = jnp.where((h_flags & 4) != 0, True, st_bcull)
-        sleft = _bar(h_a * (x0f - h_hw))
-        sright = _bar(h_a * (x0f + twf + h_hw))
-        stop = _bar(h_b * (y0f - h_hw))
-        sbot = _bar(h_b * (y0f + thf + h_hw))
-        z00 = _sign(stop + sleft + h_c)
-        z01 = _sign(stop + sright + h_c)
-        z10 = _sign(sbot + sleft + h_c)
-        z11 = _sign(sbot + sright + h_c)
-        st_four = z00 * z01 + z00 * z10 + z00 * z11 < f32(3.0)
-        stroke_emit = h_is_stroke & st_bcull & st_four
+    # Stroke tests (:411-435 for polys; :223-247 for lines -- the line case
+    # has no segment bbox cull, matching the reference).
+    h_hw = hf[:, 11]
+    st_bcull = ((h_xmx[:, 1] > y0f - h_hw) & (h_xmn[:, 1] < y0f + thf + h_hw)
+                & (h_xmx[:, 0] > x0f - h_hw) & (h_xmn[:, 0] < x0f + twf + h_hw))
+    st_bcull = jnp.where((h_flags & 4) != 0, True, st_bcull)
+    sleft = _bar(h_a * (x0f - h_hw))
+    sright = _bar(h_a * (x0f + twf + h_hw))
+    stop = _bar(h_b * (y0f - h_hw))
+    sbot = _bar(h_b * (y0f + thf + h_hw))
+    z00 = _sign(stop + sleft + h_c)
+    z01 = _sign(stop + sright + h_c)
+    z10 = _sign(sbot + sleft + h_c)
+    z11 = _sign(sbot + sright + h_c)
+    st_four = z00 * z01 + z00 * z10 + z00 * z11 < f32(3.0)
+    stroke_emit = h_is_stroke & st_bcull & st_four
 
-        # Per-record command slots: slot0 = FillEdge | Line, slot1 = Fill.
-        slot0_valid = fill_emit_edge | stroke_emit
-        slot0_tag = jnp.where(stroke_emit, CMD_LINE, CMD_FILL_EDGE)
-        slot0_args = jnp.zeros((max_hits, ARG_WORDS), f32)
-        slot0_args = slot0_args.at[:, 0].set(
-            jnp.where(stroke_emit, h_sx, s00))
-        slot0_args = slot0_args.at[:, 1].set(
-            jnp.where(stroke_emit, h_sy, y_edge))
-        slot0_args = slot0_args.at[:, 2].set(jnp.where(stroke_emit, h_ex, 0))
-        slot0_args = slot0_args.at[:, 3].set(jnp.where(stroke_emit, h_ey, 0))
-        # Word 4 (unused by the line math): the emitting stroke's hw + 0.5,
-        # the fine kernel's row-cull threshold (ops/fine.py footprint
-        # restriction; the oracle encoder mirrors it, raster/ptcl.py::line).
-        slot0_args = slot0_args.at[:, 4].set(jnp.where(stroke_emit, h_hw, 0))
-        # Word 5: the per-segment inverse squared length (division-free
-        # fine math, cmd_math.py::line_field_sq) -- gathered with the
-        # record, computed once at the segment stage above.
-        slot0_args = slot0_args.at[:, 5].set(
-            jnp.where(stroke_emit, h_invd, 0))
+    # Per-record command slots: slot0 = FillEdge | Line, slot1 = Fill.
+    slot0_valid = fill_emit_edge | stroke_emit
+    slot0_tag = jnp.where(stroke_emit, CMD_LINE, CMD_FILL_EDGE)
+    slot0_args = jnp.zeros((max_hits, ARG_WORDS), f32)
+    slot0_args = slot0_args.at[:, 0].set(
+        jnp.where(stroke_emit, h_sx, s00))
+    slot0_args = slot0_args.at[:, 1].set(
+        jnp.where(stroke_emit, h_sy, y_edge))
+    slot0_args = slot0_args.at[:, 2].set(jnp.where(stroke_emit, h_ex, 0))
+    slot0_args = slot0_args.at[:, 3].set(jnp.where(stroke_emit, h_ey, 0))
+    # Word 4 (unused by the line math): the emitting stroke's hw + 0.5,
+    # the fine kernel's row-cull threshold (ops/fine.py footprint
+    # restriction; the oracle encoder mirrors it, raster/ptcl.py::line).
+    slot0_args = slot0_args.at[:, 4].set(jnp.where(stroke_emit, h_hw, 0))
+    # Word 5: the per-segment inverse squared length (division-free
+    # fine math, cmd_math.py::line_field_sq) -- gathered with the
+    # record, computed once at the segment stage above.
+    slot0_args = slot0_args.at[:, 5].set(
+        jnp.where(stroke_emit, h_invd, 0))
 
-        slot1_valid = fill_emit_edge | fill_emit_plain
-        slot1_tag = jnp.full((max_hits,), CMD_FILL, jnp.int32)
-        f1_sx = jnp.where(fill_emit_edge, clip_sx, h_sx)
-        f1_sy = jnp.where(fill_emit_edge, clip_sy, h_sy)
-        f1_ey = jnp.where(fill_emit_edge, clip_ey, h_ey)
-        # Fill operands [sx, sy, ey, m, K] (division-free trapezoid math,
-        # cmd_math.py::fill_delta): the per-SEGMENT slope/Jacobian words,
-        # shared by plain and edge-clipped fills (a clipped sub-segment
-        # lies on the same line -- one definition, mirrored by the
-        # oracle's per-segment constants).
-        slot1_args = jnp.zeros((max_hits, ARG_WORDS), f32)
-        slot1_args = slot1_args.at[:, 0].set(f1_sx)
-        slot1_args = slot1_args.at[:, 1].set(f1_sy)
-        slot1_args = slot1_args.at[:, 2].set(f1_ey)
-        slot1_args = slot1_args.at[:, 3].set(h_m)
-        slot1_args = slot1_args.at[:, 4].set(h_K)
+    slot1_valid = fill_emit_edge | fill_emit_plain
+    slot1_tag = jnp.full((max_hits,), CMD_FILL, jnp.int32)
+    f1_sx = jnp.where(fill_emit_edge, clip_sx, h_sx)
+    f1_sy = jnp.where(fill_emit_edge, clip_sy, h_sy)
+    f1_ey = jnp.where(fill_emit_edge, clip_ey, h_ey)
+    # Fill operands [sx, sy, ey, m, K] (division-free trapezoid math,
+    # cmd_math.py::fill_delta): the per-SEGMENT slope/Jacobian words,
+    # shared by plain and edge-clipped fills (a clipped sub-segment
+    # lies on the same line -- one definition, mirrored by the
+    # oracle's per-segment constants).
+    slot1_args = jnp.zeros((max_hits, ARG_WORDS), f32)
+    slot1_args = slot1_args.at[:, 0].set(f1_sx)
+    slot1_args = slot1_args.at[:, 1].set(f1_sy)
+    slot1_args = slot1_args.at[:, 2].set(f1_ey)
+    slot1_args = slot1_args.at[:, 3].set(h_m)
+    slot1_args = slot1_args.at[:, 4].set(h_K)
 
-        # Zero the args of non-emitting slots: the hit math produces NaN/Inf
-        # there (0/0 from all-zero dead expansion rows; x/0 y_edge on live
-        # degenerate segments) and those words are never interpreted, but they
-        # flow into the entry stream and the stage probes -- zeroing makes
-        # both deterministic and finite.
-        slot0_args = jnp.where(slot0_valid[:, None], slot0_args, 0.0)
-        slot1_args = jnp.where(slot1_valid[:, None], slot1_args, 0.0)
+    # Zero the args of non-emitting slots: the hit math produces NaN/Inf
+    # there (0/0 from all-zero dead expansion rows; x/0 y_edge on live
+    # degenerate segments) and those words are never interpreted, but they
+    # flow into the entry stream and the stage probes -- zeroing makes
+    # both deterministic and finite.
+    slot0_args = jnp.where(slot0_valid[:, None], slot0_args, 0.0)
+    slot1_args = jnp.where(slot1_valid[:, None], slot1_args, 0.0)
 
-        hit_n_cmds = slot0_valid.astype(jnp.int32) + slot1_valid.astype(jnp.int32)
-        stage_probe("hit_tests", hit_n_cmds, slot0_args, slot1_args)
+    hit_n_cmds = slot0_valid.astype(jnp.int32) + slot1_valid.astype(jnp.int32)
+    stage_probe("hit_tests", hit_n_cmds, slot0_args, slot1_args)
 
-        # Per-candidate emitted-command count (drives anyFill/anyStroke).
-        # Window bounds: hits are item-major, and a hit's candidate id lies in
-        # its item's candidate range [cand_excl, cand_excl + bh * bw) -- both
-        # ends monotone across hits (dead suffix pinned at the cap).
-        h_cand_end = hi[:, 5] + (hi[:, 9] - hi[:, 6] + 1) * hi[:, 7]
-        kv = hit_n_cmds.astype(f32)[:, None]
-        kk = h_cand
-        klo = jnp.where(hit_valid, hi[:, 5], max_candidates)
-        khi = jnp.where(hit_valid, h_cand_end, max_candidates + 1)
-        if os.environ.get("PIET_KSUM_BARRIER", "0") == "1":
-            # expand+gatherm interaction-bug isolator (round 4): pin the
-            # ksum inputs' liveness with an explicit barrier.
-            kv, kk, klo, khi = jax.lax.optimization_barrier(
-                (kv, kk, klo, khi))
-        cand_emit = ksum(kv, kk, klo, khi,
-                         max_candidates)[:, 0].astype(jnp.int32)
-        if with_probes == "arrays":
-            # Interaction-bug differential (round 4): the same sum via an
-            # int32 scatter-add, plus the scatter's materialized inputs.
-            k2 = jnp.where((kk >= 0) & (kk < max_candidates), kk,
-                           max_candidates)
-            alt = (jnp.zeros((max_candidates + 1,), jnp.int32)
-                   .at[k2].add(hit_n_cmds))[:max_candidates]
-            stage_probe("cand_emit_alt", alt)
-            stage_probe("cand_emit_inputs", kv, kk.astype(f32))
+    # Per-candidate emitted-command count (drives anyFill/anyStroke);
+    # dead hits carry no commands.
+    cand_emit = keyed_sum_xla(hit_n_cmds.astype(f32)[:, None], h_cand,
+                              max_candidates)[:, 0].astype(jnp.int32)
 
     # ---- winding deltas (backdrop), FOLDED into the hit records -------
-    # Round 5 (VERDICT r4 item 1): one crossing record per (fill
-    # segment, tile row), emitted from that row's dx == 0 hit record --
-    # the hit pipeline already decodes every (segment, row), so the
-    # former second full ``seg_all`` expansion (del_expand, 1.6 ms at
-    # 4K, the largest round-4 coarse stage) is gone; only the keyed
-    # +-1 sums and the prefix machinery remain.  The rect widening at
+    # One crossing record per (fill segment, tile row), emitted from that
+    # row's dx == 0 hit record -- the hit pipeline already decodes every
+    # (segment, row), so no second expansion of ``seg_all`` is needed;
+    # only the keyed +-1 sums and the prefix machinery remain.  The rect widening at
     # ``seg_rects`` guarantees a dx == 0 record exists for every delta
     # row.  (The reference derives backdrop in the same per-tile walk
     # as the coverage commands, PietRender.metal:257-364.)
@@ -806,47 +635,39 @@ def coarse_rasterize(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
                          row0 + tiles_y - 1)
     n_deltas = jnp.sum(jnp.where(is_fill_seg & (a != 0),
                                  jnp.maximum(d_y_hi - d_y_lo + 1, 0), 0))
-    if use_hitfuse:
-        d_val = fused["d_val"]
-        dk = jnp.where(hit_valid & (d_val != 0.0),
-                       fused["d_cand"].astype(jnp.int32), max_candidates)
-        delta_scatter = ksum(d_val[:, None], dk, klo, khi,
-                             max_candidates)[:, 0]
-    else:
-        # The record is a delta emitter iff it is the row's first column
-        # and the row's top edge lies inside the segment's y-span
-        # (y0 >= ymin <=> ty >= ceil(ymin/th), exactly, for power-of-two
-        # tile heights -- the round-4 delta stage's row condition).
-        del_ok = (h_is_fill & (h_a != 0.0) & (h_dx == 0)
-                  & (h_xmn[:, 1] <= y0f) & (h_xmx[:, 1] >= y0f)
-                  & (hi[:, 8] <= hi[:, 10]))
-        # Crossing column: first tx with sign(a*x0 + b*y0 + c) ==
-        # sign(a).  The f32-evaluated expression is monotone in x0, so
-        # probe +-2 tiles around the analytic crossing to match the
-        # per-tile sign test bit-for-bit (expressions verbatim from the
-        # round-4 delta stage).
-        x_cross = -(_bar(h_b * y0f) + h_c) / h_a
-        tx_guess = jnp.floor(x_cross / twf).astype(jnp.int32) + 1
-        sign_a = _sign(h_a)
+    # The record is a delta emitter iff it is the row's first column
+    # and the row's top edge lies inside the segment's y-span
+    # (y0 >= ymin <=> ty >= ceil(ymin/th), exactly, for power-of-two
+    # tile heights -- the round-4 delta stage's row condition).
+    del_ok = (h_is_fill & (h_a != 0.0) & (h_dx == 0)
+              & (h_xmn[:, 1] <= y0f) & (h_xmx[:, 1] >= y0f)
+              & (hi[:, 8] <= hi[:, 10]))
+    # Crossing column: first tx with sign(a*x0 + b*y0 + c) ==
+    # sign(a).  The f32-evaluated expression is monotone in x0, so
+    # probe +-2 tiles around the analytic crossing to match the
+    # per-tile sign test bit-for-bit (expressions verbatim from the
+    # round-4 delta stage).
+    x_cross = -(_bar(h_b * y0f) + h_c) / h_a
+    tx_guess = jnp.floor(x_cross / twf).astype(jnp.int32) + 1
+    sign_a = _sign(h_a)
 
-        def dprobe(dtx):
-            x0p = (tx_guess + dtx).astype(f32) * twf
-            return _sign(_bar(h_a * x0p) + _bar(h_b * y0f) + h_c) == sign_a
+    def dprobe(dtx):
+        x0p = (tx_guess + dtx).astype(f32) * twf
+        return _sign(_bar(h_a * x0p) + _bar(h_b * y0f) + h_c) == sign_a
 
-        tx_c = jnp.where(dprobe(-1), tx_guess - 1,
-                         jnp.where(dprobe(0), tx_guess,
-                                   jnp.where(dprobe(1), tx_guess + 1,
-                                             tx_guess + 2)))
-        # Clamp the crossing column into the item's bbox rect row; drop
-        # crossings right of it.  d_value is the reference's
-        # `backdrop -= s00` with s00 == sign(a).
-        tx_eff = jnp.maximum(tx_c, hi[:, 8])
-        d_ok = del_ok & (tx_eff <= hi[:, 10])
-        d_cand = hi[:, 5] + (h_ty - hi[:, 6]) * hi[:, 7] + (tx_eff - hi[:, 8])
-        delta_scatter = ksum(
-            jnp.where(d_ok, -sign_a, 0.0)[:, None],
-            jnp.where(d_ok, d_cand, max_candidates),
-            klo, khi, max_candidates)[:, 0]
+    tx_c = jnp.where(dprobe(-1), tx_guess - 1,
+                     jnp.where(dprobe(0), tx_guess,
+                               jnp.where(dprobe(1), tx_guess + 1,
+                                         tx_guess + 2)))
+    # Clamp the crossing column into the item's bbox rect row; drop
+    # crossings right of it.  d_value is the reference's
+    # `backdrop -= s00` with s00 == sign(a).
+    tx_eff = jnp.maximum(tx_c, hi[:, 8])
+    d_ok = del_ok & (tx_eff <= hi[:, 10])
+    d_cand = hi[:, 5] + (h_ty - hi[:, 6]) * hi[:, 7] + (tx_eff - hi[:, 8])
+    delta_scatter = keyed_sum_xla(
+        jnp.where(d_ok, -sign_a, 0.0)[:, None],
+        jnp.where(d_ok, d_cand, max_candidates), max_candidates)[:, 0]
     stage_probe("del_scatter", delta_scatter)
     # Per-(item, row) prefix sum along tx: candidates are row-major per item,
     # so subtract the running total at each row start.  (cf/ci rows were
@@ -857,14 +678,8 @@ def coarse_rasterize(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
     # cand_row_start is nondecreasing (candidates expand item- and
     # row-major; dead slots continue as cand_idx), so the row-start base
     # fetch rides the monotone-gather engine on the Pallas path.
-    if "gatherm" in engines:
-        sb_idx = jnp.clip(cand_row_start - 1, 0, max_candidates - 1)
-        (sb,) = gather_monotone(
-            csum[:, None], (sb_idx,), interpret=eng_interp)
-        start_base = jnp.where(cand_row_start > 0, sb[:, 0], 0.0)
-    else:
-        start_base = jnp.where(cand_row_start > 0,
-                               csum[cand_row_start - 1], 0.0)
+    start_base = jnp.where(cand_row_start > 0,
+                           csum[cand_row_start - 1], 0.0)
     # csum at the candidate's own slot IS csum[cand_idx] == csum
     # elementwise: candidates expand row-major, so row_start + dx =
     # cand_excl + dy*w + dx = cand_idx (holds for dead slots too, where
@@ -1010,9 +825,7 @@ def coarse_rasterize(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
     # ---- pre-sort row assembly (entries output) -----------------------
     # The post-sort side then needs only TWO gathers (rows, meta) instead
     # of a dozen per-attribute gathers at sorted indices.
-    if output == "entries" and use_hitfuse:
-        hit_rows = fused["rows"]
-    elif output == "entries":
+    if output == "entries":
         # NOTE: promoting a lone slot-1 Fill into slot 0 (saving a no-op
         # switch dispatch) was tried and measured 3.5 ms SLOWER at 4K --
         # the interpreter's cheap path is the first switch branch.
@@ -1064,9 +877,8 @@ def coarse_rasterize(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
     # records item-major, so a STABLE sort preserves painter's order
     # within groups for free.
     #
-    # Keys are f32 (exact for integers < 2^24): s32 selects inside this
-    # fused context hit an XLA:TPU slow path (4.2 ms vs 0.03 ms for the
-    # identical f32 select at 37k records -- measured, see ROADMAP).
+    # Keys are f32 (exact for integers < 2^24): one f32 key plus an int32
+    # payload is the shape XLA:GPU can hand to a radix sort.
     # Falls back to an UNPACKED (tile, item*2+class) two-key sort when the
     # packed key would lose integer exactness in f32 (huge item counts x
     # tile grids; tests/test_coarse.py covers the fallback at a config
@@ -1077,12 +889,8 @@ def coarse_rasterize(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
     DEAD = f32(jnp.inf)
     order_idx = jnp.arange(E, dtype=jnp.int32)
     if packed_ok:
-        if use_hitfuse:
-            hit_key1 = fused["key"]
-        else:
-            hit_key1 = jnp.where(
-                hit_live, (h_tile * stride + h_item * 2).astype(f32),
-                DEAD)
+        hit_key1 = jnp.where(
+            hit_live, (h_tile * stride + h_item * 2).astype(f32), DEAD)
         cand_key1 = jnp.where(
             cand_cmd_valid,
             (cand_tile * stride + cand_item * 2 + 1).astype(f32), DEAD)
@@ -1096,12 +904,7 @@ def coarse_rasterize(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
                 [jnp.where(hit_live, (h_item * 2).astype(f32), DEAD),
                  jnp.where(cand_cmd_valid,
                            (cand_item * 2 + 1).astype(f32), DEAD)]))
-    # Bitonic Pallas sort on TPU (ops/sort.py): lax.sort inside this
-    # pipeline costs ~7 ms at 58k records (an XLA:TPU scheduling
-    # pathology -- standalone it is 0.7 ms); the bitonic network is
-    # ~0.7 ms and bit-identical to the stable sort.
-    sorted_keys, sorted_idx = stable_sort_multi(
-        all_keys, order_idx, impl=sort_impl)
+    sorted_keys, sorted_idx = stable_sort_multi(all_keys, order_idx)
     live = sorted_keys[0] < DEAD
     if packed_ok:
         # Dead keys (+inf) cap to n_tiles * stride, so tile decode needs
@@ -1133,48 +936,13 @@ def coarse_rasterize(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
             # entries on every BASELINE config; command counts unchanged.
             p = pair_entries(stream16, sorted_keys, live, e_tile, e_ncmds,
                              e_is_opaque, e_is_clear, n_tiles,
-                             expand_impl=expand_impl, mode=pair_mode)
+                             mode=pair_mode)
             stream16, live, e_tile = p.rows, p.live, p.e_tile
             e_ncmds, e_is_opaque, e_is_clear = (p.e_ncmds, p.e_is_opaque,
                                                 p.e_is_clear)
             stage_probe("pairing", stream16)
         else:
             stage_probe("pairing", e_tile)
-        if pair_mode == "off":
-            # Run-length annotation (W_RUN): the fine kernel's RUN
-            # DISPATCH interprets a maximal streak of adjacent same-class
-            # entries -- plain fills (slot-1-only) or lines -- under ONE
-            # tag read + class branch instead of one per entry (the
-            # per-entry scalar dispatch is the measured fine-kernel
-            # bottleneck, ROADMAP.md).  Entry ORDER is untouched: the
-            # dispatch is hoisted, not the math, so images stay
-            # bit-identical.  Every entry stores the length REMAINING
-            # from itself (the bail reset can start interpretation
-            # mid-run).  Class rides the key so boundaries are exactly
-            # where tkey changes; adjacent same-class entries of
-            # DIFFERENT items merge legally (area adds / df mins apply
-            # in unchanged order).
-            t0w = stream16[:, W_S0_TAG]
-            t1w = stream16[:, W_S1_TAG]
-            run_pf = live & (t0w == 0.0) & (t1w == f32(CMD_FILL))
-            run_ln = live & (t0w == f32(CMD_LINE)) & (t1w == 0.0)
-            clsf = jnp.where(run_pf, f32(1.0),
-                             jnp.where(run_ln, f32(2.0), f32(0.0)))
-            assert 3 * (n_tiles + 1) < 2**24, "run-key f32 range"
-            tkey = clsf * f32(n_tiles + 1) + jnp.minimum(
-                e_tile, n_tiles).astype(f32)
-            prev = jnp.concatenate([jnp.full((1,), f32(-1.0)), tkey[:-1]])
-            eidxf = jnp.arange(E, dtype=f32)
-            bnd = jnp.where(tkey != prev, eidxf, f32(E))
-            nxt = jax.lax.cummin(bnd, reverse=True)
-            next_b = jnp.concatenate([nxt[1:], jnp.full((1,), f32(E))])
-            run_len = jnp.minimum(next_b - eidxf, f32(RUN_CAP))
-            w_run = jnp.where(run_pf, run_len,
-                              jnp.where(run_ln, -run_len, f32(0.0)))
-            stream16 = stream16.at[:, W_RUN].set(w_run)
-            stage_probe("runs", w_run)
-        else:
-            stage_probe("runs", e_tile)
     else:
         src_is_hit = sorted_idx < max_hits
         hidx = jnp.minimum(sorted_idx, max_hits - 1)
@@ -1188,8 +956,7 @@ def coarse_rasterize(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
 
     # In-tile command positions and per-tile reductions.  Entries are
     # tile-sorted with the dead suffix last, so per-tile entry ranges and
-    # command bases are CUMSUMS of per-tile counts -- a keyed histogram
-    # (MXU engine on TPU) replaces the scalar-core segment_max; the
+    # command bases are CUMSUMS of per-tile counts; the
     # last-opaque/last-clear positions come from GLOBAL cumulative maxima
     # (vectorized log-step scans) sampled at each tile's last entry.
     # The dense path keeps the one-shot f32 segment_max formulation (its
@@ -1203,9 +970,8 @@ def coarse_rasterize(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
         # -- the stream is tile-sorted with dead entries decoding to
         # e_tile == n_tiles at the end (pairing preserves both,
         # ops/pairing.py), so boundary positions give exact live counts
-        # and command totals with ~log2(E) small gathers instead of the
-        # keyed-histogram SCATTER that dominated this stage (XLA scatter
-        # ~15 cycles/element over E entries).
+        # and command totals with ~log2(E) small gathers instead of a
+        # keyed-histogram scatter over E entries.
         bnd = jnp.searchsorted(seg_tile, jnp.arange(n_tiles + 1,
                                                     dtype=jnp.int32),
                                side="left").astype(jnp.int32)
@@ -1294,8 +1060,7 @@ def coarse_rasterize(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
         # tile gets an index range -- no scatter at all (the dense path's
         # two row scatters are ~30 ms at 128k records).  Dead entries
         # carry tag 0 rows by construction.
-        stream = (stream16.reshape(E // 128, 128, ENTRY_WORDS)
-                  .transpose(0, 2, 1))
+        stream = stream16
         # Per-tile live range: the dense path's start/count logic, in
         # entry units.  The stream reset at an opaque solid keeps entries
         # from best_entry on (TileEncoder cursor reset,
@@ -1333,8 +1098,7 @@ def coarse_rasterize(scene: DeviceScene, *, tiles_x: int, tiles_y: int,
     e_s1_args = slot1_args[hidx]
 
     # One fused (1 + ARG_WORDS)-wide f32 row per command, tag bitcast into
-    # word 0, so each slot costs a single scatter (TPU scatters are ~12 ms
-    # per 128k rows; splitting tags/args would double that).
+    # word 0, so each slot costs a single scatter.
     out_rows = jnp.zeros((n_tiles * cmd_capacity + 1, 1 + ARG_WORDS), f32)
 
     e_tile_c = jnp.minimum(e_tile, n_tiles - 1)

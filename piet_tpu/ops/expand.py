@@ -1,266 +1,35 @@
-"""Pallas ragged expansion + row gather (the coarse pass's record engine).
+"""Ragged expansion + row gather, the coarse pass's record generator.
 
 The coarse binning pass (ops/coarse.py) repeatedly performs *ragged
 expansion*: source i (an item or a segment) owns ``counts[i]`` consecutive
-output slots, and every output slot needs the source's attribute row --
-``out[p] = rows[src(p)]`` where ``src(p) = #{i : incl[i] <= p}``.  In XLA
-this costs a scatter + cumulative max + a row gather, all of which execute
-on the TPU's scalar core at ~15 cycles per element (measured; see
-ROADMAP.md) -- the dominant cost of the coarse pass at ~100k records.
-
-This kernel reformulates expansion-plus-gather as dense vector/matrix
-work, the idiom the hardware is built for:
-
-* For a block of ``BLK`` consecutive output slots, the owning sources lie
-  in a contiguous window of the source array (sources are laid out by
-  nondecreasing start offset).  The window start per block is a cheap
-  O(S) XLA precompute; the kernel DMAs the window's rows into VMEM.
-* Ownership is a *banded interval matrix*: ``M[p, s] = 1 iff
-  excl[s] <= p < incl[s]`` -- built as two vectorized compares on the
-  VPU (no scatter, no binary search).
-* The gather is then one MXU matmul: ``out_block = M @ window_rows``.
-
-Exact 32-bit transport: each row word is shipped as FOUR 8-bit integer
-quarters in bf16 (integers <= 255 are exact in bf16's 8-bit mantissa;
-each output slot has exactly one unit-weight source, so the f32 MXU
-accumulation is a sum of zeros plus one exact small integer).  A bf16
-one-hot matmul is a SINGLE MXU pass -- the earlier 16-bit-halves-in-f32
-transport needed Precision.HIGHEST (~6 bf16 passes) and lost to the XLA
-scatter path on it.  The quarters are recombined bitwise after the
-kernel, so ARBITRARY 32-bit payloads -- f32 including -0.0/Inf/NaN, or
-bitcast int32 -- round-trip bit-exactly (pinned by tests/test_expand.py).
-
-Reference context: this replaces the ballot-and-walk work distribution of
-the reference's tiler (PietRender.metal:191-213,254-305) -- the TPU-native
-answer to "which work items does this consumer process?".
+output slots, and every output slot needs the source's attribute row.  It
+replaces the ballot-and-walk work distribution of the reference's tiler
+(PietRender.metal:191-213,254-305).
 """
 
 from __future__ import annotations
 
-import functools
-import os
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-#: Output slots per grid block.  Large blocks amortize per-step DMA/grid
-#: machinery (~1 us each); the mask build cost is per-element, independent
-#: of the split.
-BLK = 1024
-#: Source-window lanes per DMA sub-window (128-aligned).
-WIN = 512
-
-
-def _precompute(excl: jax.Array, counts: jax.Array, cap: int, s_pad: int):
-    """Per-block window starts (lane-aligned) and sub-window counts.
-
-    ``hi_src[b]`` = max live source whose first slot is < (b+1)*BLK; the
-    window for block b is [align128(hi_src[b-1]), hi_src[b]] -- a
-    guaranteed superset of the sources owning block b's slots, because
-    sources are ordered by start offset.
-    """
-    S = counts.shape[0]
-    n_blocks = cap // BLK
-    ids = jnp.arange(S, dtype=jnp.int32)
-    live = counts > 0
-    blk = jnp.clip(excl // BLK, 0, n_blocks - 1)
-    seed = (jnp.full((n_blocks,), -1, jnp.int32)
-            .at[jnp.where(live, blk, n_blocks - 1)]
-            .max(jnp.where(live, ids, -1), mode="drop"))
-    hi_src = jnp.maximum(jax.lax.cummax(seed), 0)
-    lo_raw = jnp.concatenate([jnp.zeros((1,), jnp.int32), hi_src[:-1]])
-    lo = (lo_raw // 128) * 128
-    span = hi_src + 1 - lo
-    n_sub = jnp.clip((span + WIN - 1) // WIN, 1, s_pad // WIN)
-    n_sub = jnp.minimum(n_sub, (s_pad - lo) // WIN)
-    return lo, n_sub
-
-
-def _expand_kernel(lo_ref, nsub_ref, total_ref, rows_hbm, bounds_hbm,
-                   out_ref, wbuf, bbuf, sems, *, sync_dma: bool = False):
-    b = pl.program_id(0)
-    nb = pl.num_programs(0)
-    p0 = b * BLK
-    total = total_ref[0]
-    alive = p0 < total
-
-    def dma(slot, blk_ix, sub):
-        # Window starts are 128-aligned by construction (_precompute);
-        # Mosaic needs the hint to allow a lane-dimension slice.
-        start = pl.multiple_of(lo_ref[blk_ix] + sub * WIN, 128)
-        return (pltpu.make_async_copy(
-                    rows_hbm.at[pl.ds(start, WIN), :],
-                    wbuf.at[slot], sems.at[2 * slot]),
-                pltpu.make_async_copy(
-                    bounds_hbm.at[:, pl.ds(start, WIN)],
-                    bbuf.at[slot], sems.at[2 * slot + 1]))
-
-    def start(slot, blk_ix, sub):
-        for d in dma(slot, blk_ix, sub):
-            d.start()
-
-    def wait(slot, blk_ix, sub):
-        for d in dma(slot, blk_ix, sub):
-            d.wait()
-
-    # Cross-block pipelining: block b's first sub-window is prefetched by
-    # block b-1 into slot (b % 2); slot 2 serves in-block extra
-    # sub-windows (rare).  Dead blocks (entirely past the live total)
-    # skip all DMA; prefetch/await predicates agree because ``alive`` is
-    # a function of the block index and ``total`` alone.
-    if sync_dma:
-        # Diagnostic mode (PIET_ENGINE_SYNC_DMA): no cross-block prefetch
-        # pipelining (the expand+gatherm interaction-bug isolator).
-        @pl.when(alive)
-        def _():
-            start(b % 2, b, 0)
-            wait(b % 2, b, 0)
-    else:
-        @pl.when((b == 0) & alive)
-        def _():
-            start(0, 0, 0)
-
-        @pl.when(alive)
-        def _():
-            wait(b % 2, b, 0)
-
-        @pl.when((b + 1 < nb) & ((b + 1) * BLK < total))
-        def _():
-            start((b + 1) % 2, b + 1, 0)
-
-    Pf = (p0 + jax.lax.broadcasted_iota(jnp.int32, (BLK, WIN), 0)
-          ).astype(jnp.float32)
-
-    def accum(slot):
-        lo_b = bbuf[slot, 0:1, :]
-        hi_b = bbuf[slot, 1:2, :]
-        # One-hot interval mask; bf16 one-hot x bf16 quarters with f32
-        # accumulation is exact (see module doc) and a single MXU pass.
-        m = jnp.where((lo_b <= Pf) & (Pf < hi_b), 1.0, 0.0
-                      ).astype(jnp.bfloat16)
-        return jax.lax.dot_general(
-            m, wbuf[slot], (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32)
-
-    @pl.when(alive)
-    def _():
-        out_ref[...] = accum(b % 2)
-        nsub = nsub_ref[b]
-
-        @pl.when(nsub > 1)
-        def _():
-            def body(sub, _):
-                start(2, b, sub)
-                wait(2, b, sub)
-                out_ref[...] += accum(2)
-                return 0
-            jax.lax.fori_loop(1, nsub, body, 0)
-
-    @pl.when(jnp.logical_not(alive))
-    def _():
-        out_ref[...] = jnp.zeros_like(out_ref)
-
-
-@functools.partial(jax.jit, static_argnames=("cap", "interpret"))
-def expand_rows(rows: jax.Array, counts: jax.Array, cap: int,
-                excl: jax.Array | None = None, *,
-                interpret: bool = False) -> jax.Array:
-    """Ragged-expand ``rows`` by ``counts`` into ``cap`` output slots.
-
-    Args:
-      rows: (S, W) source attribute rows; any 32-bit dtype (transported
-        bit-exactly -- see module doc).
-      counts: (S,) int32 slots per source (zeros allowed anywhere).
-      cap: static output capacity.
-      excl: optional precomputed exclusive cumsum of ``counts``.
-
-    Returns:
-      (cap, W) of rows.dtype with ``out[p] = rows[src(p)]`` for live
-      slots, all-zero-bits rows at and beyond ``counts.sum()``.
-    """
-    S, W = rows.shape
-    cap_pad = ((cap + BLK - 1) // BLK) * BLK
-    assert cap_pad < 2 ** 24, "slot ids must stay exact in f32"
-    if excl is None:
-        excl = jnp.cumsum(counts) - counts
-    incl = excl + counts
-    total = incl[-1] if S else jnp.int32(0)
-
-    # 32-bit words -> four exact 8-bit-integer bf16 quarters, interleaved
-    # so out columns (4k .. 4k+3) recombine into word k.  The lane (word)
-    # axis pads to 128: Mosaic requires HBM DMA slices lane-aligned to 128.
-    assert 4 * W <= 128, "at most 32 words per row"
-    u = jax.lax.bitcast_convert_type(rows, jnp.uint32)
-    quarters = jnp.stack([(u >> 24).astype(jnp.bfloat16),
-                          ((u >> 16) & 0xFF).astype(jnp.bfloat16),
-                          ((u >> 8) & 0xFF).astype(jnp.bfloat16),
-                          (u & 0xFF).astype(jnp.bfloat16)], axis=2)
-    rows_f = quarters.reshape(S, 4 * W)
-
-    s_pad = (S // WIN + 2) * WIN
-    pad = s_pad - S
-    rows_p = jnp.pad(rows_f, ((0, pad), (0, 128 - 4 * W)))
-    # Dead-source intervals collapse to empty at ``cap_pad``: never owners.
-    dead = jnp.float32(cap_pad)
-    bounds = jnp.stack(
-        [jnp.where(counts > 0, excl.astype(jnp.float32), dead),
-         jnp.where(counts > 0, incl.astype(jnp.float32), dead)])
-    bounds_p = jnp.pad(bounds, ((0, 6), (0, pad)))
-    bounds_p = bounds_p.at[0, S:].set(dead)
-
-    lo, n_sub = _precompute(excl, counts, cap_pad, s_pad)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=3,
-        grid=(cap_pad // BLK,),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.HBM),
-                  pl.BlockSpec(memory_space=pltpu.HBM)],
-        out_specs=pl.BlockSpec((BLK, 128), lambda b, lo, ns, t: (b, 0),
-                               memory_space=pltpu.VMEM),
-        scratch_shapes=[
-            pltpu.VMEM((3, WIN, 128), jnp.bfloat16),
-            pltpu.VMEM((3, 8, WIN), jnp.float32),
-            pltpu.SemaphoreType.DMA((6,)),
-        ],
-    )
-    out_f = pl.pallas_call(
-        functools.partial(
-            _expand_kernel,
-            sync_dma="expand" in os.environ.get("PIET_ENGINE_SYNC_DMA",
-                                                "")),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((cap_pad, 128), jnp.float32),
-        interpret=interpret,
-    )(lo, n_sub, total.reshape(1), rows_p, bounds_p)[:cap, :4 * W]
-
-    oh = out_f.reshape(cap, W, 4)
-    out_u = ((oh[:, :, 0].astype(jnp.uint32) << 24)
-             | (oh[:, :, 1].astype(jnp.uint32) << 16)
-             | (oh[:, :, 2].astype(jnp.uint32) << 8)
-             | oh[:, :, 3].astype(jnp.uint32))
-    return jax.lax.bitcast_convert_type(out_u, rows.dtype)
 
 
 def expand_rows_xla(rows: jax.Array, counts: jax.Array, cap: int,
                     excl: jax.Array | None = None) -> jax.Array:
-    """XLA reference implementation: the exactness oracle for expand_rows
-    and the portable fallback.
+    """Ragged expansion + row gather: ``out[p] = rows[src(p)]`` for the
+    ``total = sum(counts)`` live slots (source i owns ``counts[i]``
+    consecutive slots), all-zero rows past ``total``.
 
     Owner lookup, formulation chosen by DIRECTION (static shapes):
 
     * S > cap (many sources, few outputs -- the winding-delta case):
       BINARY SEARCH on the inclusive cumsum -- output p belongs to the
       first source s with incl[s] > p (zero-count sources collapse and
-      are skipped by side="right").  The scatter formulation here paid
-      ~40 ns/SOURCE on the XLA:TPU scalar core: 8.1 ms for the delta
-      expansion alone at beziers_10k's 203k segments (round-4 profile).
+      are skipped by side="right"), so the work scales with the
+      outputs.
     * S <= cap (few sources, many outputs -- segment/candidate/hit
-      expansions): scatter-seed + cummax over outputs -- the scatter is
-      S elements (cheap), while a search would pay log2(S) scalar
-      gathers at the OUTPUT count (measured: tiger_8x 5.04 -> 7.33 ms
-      end-to-end when the search was used unconditionally).
+      expansions): scatter-seed + cummax over outputs; the scatter is
+      only S elements, where a search would pay log2(S) gathers per
+      output.
 
     Output-identical either way."""
     S, _ = rows.shape

@@ -1,738 +1,270 @@
-"""Pallas fine rasterizer: the device-side PTCL interpreter.
+"""Pallas fine rasterizer for the GPU: the entry-stream PTCL interpreter.
 
-TPU-native reimplementation of the reference's ``renderKernel``
-(PietRender.metal:457-566).  Mapping of the parallelism:
+The device counterpart of the reference's ``renderKernel``
+(PietRender.metal:457-566), written for Pallas's Triton route.  The
+reference runs one threadgroup per tile and one thread per pixel, and every
+thread interprets its tile's command list with scalar state.  Here one
+program interprets one horizontal STRIP of a tile (``STRIP_H`` rows x
+``tile_w`` columns): the per-pixel state (r, g, b, squared line field,
+signed area) is a set of register tensors, and the program walks its
+tile's entry range ``[first, first + n)`` of the coarse pass's sorted
+entry stream (ops/coarse.py::CoarseEntries) in a loop whose trip count is
+that tile's own.  Every strip of a tile re-reads the same entries; the
+reads are uniform across the program's threads and hit L1/L2.
 
-* reference: one GPU thread per pixel, threadgroup = one 16x16 tile; the
-  command list is interpreted per-thread with scalar state; each thread
-  re-reads every command word from device memory (PietRender.metal:475).
-* here: one Pallas grid step per tile; the per-pixel state (r/g/b, df,
-  signed-area) lives as (tile_h, tile_w) f32 VMEM arrays -- with the default
-  16x128 tile exactly two VPU vregs each -- and every command is one
-  scalar-driven vector operation over the whole tile.  The sequential
-  command loop is a ``lax.fori_loop`` (painter's order is a hard data
-  dependency) with a 7-way ``lax.switch`` on the tag.
+Per entry, slot 0 (FillEdge | Line | paired Fill | tail command) applies
+before slot 1 (Fill | paired Line), each dispatched on its own tag, so
+paired streams (ops/pairing.py) need no separate kernel.  The dispatch is a
+chain of ``lax.cond`` (``scf.if`` on this route) with the dominant classes
+first.
 
-Memory plumbing (the TPU analog of the reference's per-thread PTCL reads):
+Clip and layer groups keep their stacks (MAX_GROUP_DEPTH coverage planes
+and saved-rgb planes per strip) in a scratch output in device memory: only
+group commands and draws under an open clip touch it, so strips without
+groups pay nothing for it.
 
-* per-tile command counts are scalar-prefetched into SMEM (they gate all
-  control flow),
-* the merged (T, 8, CAP) tag+operand array stays in HBM; each tile's
-  live prefix is DMA'd into SMEM scratch in CMD_CHUNK-command chunks,
-  double-buffered so the next chunk's DMA overlaps interpretation of the
-  current one.  Scalar reads then come from SMEM, the unit that drives
-  VPU ops with scalar operands.
-
-The math matches raster/cpu_fine.py bit-for-bit on TPU hardware (f32
-policy; full precision story in ops/cmd_math.py): Mosaic's mul/add are
-exactly rounded at every tile shape, resolve-path sqrt rides ieee_sqrt
-and the sRGB encode is a mul/add-only polynomial chain (device sqrt/div
-are NOT IEEE -- round-4 measurement), so kernel output is bit-identical
-to the numpy oracle (tests/test_tpu_exact.py).  Under the interpreter on
-CPU, XLA:CPU's LLVM backend may contract, giving a documented <=2-code
-tolerance (tests/test_fine.py).
+Numerics: ``bar`` is an FMA-contraction barrier.  In interpret mode it is
+``optimization_barrier``; compiled, it is an explicitly rounded
+``add.rn.f32 x, -0.0`` in inline PTX -- an identity for every f32 value
+that neither LLVM (opaque asm) nor ptxas (explicit rounding mode) fuses
+with the product feeding it, so each guarded product is rounded on its
+own, as the numpy oracle (raster/cpu_fine.py) rounds it.
 """
 
 from __future__ import annotations
 
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
-from ..layout.entry_stream import (ENTRY_WORDS, W_RUN, W_S0_ARG, W_S0_TAG,
-                                   W_S1_ARG, W_S1_TAG)
-from ..raster.ptcl import (ARG_WORDS, CMD_BEGIN_CLIP, CMD_BEGIN_LAYER,
-                           CMD_CIRCLE, CMD_DRAW_FILL, CMD_END_CLIP,
-                           CMD_END_LAYER, CMD_FILL, CMD_FILL_EDGE, CMD_LINE,
-                           CMD_SOLID, CMD_STROKE)
+from ..layout.entry_stream import (ENTRY_WORDS, W_S0_ARG, W_S0_TAG, W_S1_ARG,
+                                   W_S1_TAG)
+from ..raster.ptcl import (CMD_BEGIN_CLIP, CMD_BEGIN_LAYER, CMD_CIRCLE,
+                           CMD_DRAW_FILL, CMD_DRAW_LIN_GRAD,
+                           CMD_DRAW_RAD_GRAD, CMD_END_CLIP, CMD_END_LAYER,
+                           CMD_FILL, CMD_FILL_EDGE, CMD_LINE, CMD_SOLID,
+                           CMD_STROKE, CMD_WIND)
 from ..scene.scene import MAX_GROUP_DEPTH
-from ..raster.ptcl import CMD_DRAW_LIN_GRAD, CMD_DRAW_RAD_GRAD
-from ..raster.ptcl import CMD_WIND
-from .cmd_math import (DF2_INIT, DF_INIT, clip_alpha, edge_delta, fill_delta,
+from .cmd_math import (DF2_INIT, clip_alpha, edge_delta, fill_delta,
                        ieee_sqrt, line_field_sq, make_commands,
                        make_grad_commands, pack_rgba8)
 
-# Commands DMA'd per double-buffer slot: 128 tags (512 B) + 128xARG_WORDS
-# f32 operands -- small enough for SMEM, and chunk boundaries stay
-# 128-lane-aligned, which Mosaic requires for sliced DMA sources.
-CMD_CHUNK = 128
+#: Rows of a tile interpreted by one program.
+STRIP_H = 8
+#: Warps per program.
+NUM_WARPS = 4
+
+D = MAX_GROUP_DEPTH
+#: Scratch planes per strip: clip coverage for depths 1..D, then the
+#: saved r, g, b of each layer level.
+STACK_PLANES = 4 * D
 
 
-def _fine_kernel(counts_ref, row0_ref, cmds_hbm, out_ref, cmds_s, sems, *,
-                 tile_h: int, tile_w: int, cmd_capacity: int,
+def _asm_bar(x):
+    """Compiled FMA barrier (module docstring): x + (-0.0), rounded."""
+    (y,) = plt.elementwise_inline_asm(
+        "add.rn.f32 $0, $1, 0f80000000;", args=[x], constraints="=f,f",
+        pack=1, result_shape_dtypes=[jax.ShapeDtypeStruct(x.shape, x.dtype)])
+    return y
+
+
+def _dispatch(cases, default, *ops):
+    """First ``fn(*ops)`` of ``cases = [(pred, fn), ...]`` whose scalar
+    predicate holds, else ``default(*ops)``: a chain of ``lax.cond`` (the
+    Triton route lowers ``lax.switch``'s index clamp incorrectly)."""
+    if not cases:
+        return default(*ops)
+    (pred, fn), rest = cases[0], cases[1:]
+    return jax.lax.cond(pred, fn,
+                        lambda *o: _dispatch(rest, default, *o), *ops)
+
+
+def _fine_kernel(first_ref, n_ref, solid_ref, row0_ref, stream_ref, out_ref,
+                 stack_ref, *, tile_h: int, tile_w: int, strip_h: int,
                  tiles_x: int, interpret: bool):
-    if interpret:
-        bar = jax.lax.optimization_barrier  # best-effort (see cmd_math.py)
-    else:
-        def bar(x):
-            # Mosaic: identity (optimization_barrier has no TPU
-            # lowering; also unnecessary -- Mosaic emits uncontracted,
-            # exactly-rounded mul+add at every tested tile shape, and the
-            # former 32-row divergence was the non-IEEE device sqrt/div
-            # reaching the u8 rounding, fixed structurally in round 4 --
-            # see ops/cmd_math.py precision policy).
-            return x
-
+    bar = jax.lax.optimization_barrier if interpret else _asm_bar
+    f32 = jnp.float32
     t = pl.program_id(0)
-    n = counts_ref[t]
-    ty = row0_ref[0] + t // tiles_x
-    tx = t % tiles_x
-    x0 = (tx * tile_w).astype(jnp.float32)
-    y0 = (ty * tile_h).astype(jnp.float32)
-    # tpu.iota is integer-only; cast to f32 after (exact for these ranges).
-    X = x0 + jax.lax.broadcasted_iota(
-        jnp.int32, (tile_h, tile_w), 1).astype(jnp.float32)
-    Y = y0 + jax.lax.broadcasted_iota(
-        jnp.int32, (tile_h, tile_w), 0).astype(jnp.float32)
+    s = pl.program_id(1)
+    n = n_ref[t]
+    shp = (strip_h, tile_w)
 
-    n_chunks = jnp.maximum(pl.cdiv(n, CMD_CHUNK), 1)
+    @pl.when(n == 0)
+    def _():
+        # Empty tile: the present fast path (PietRender.metal:34-44) -- the
+        # bail solid's raw sRGB bytes, or the white background.
+        sol = solid_ref[t]
+        px = jnp.where(sol == 0, jnp.uint32(0xFFFFFFFF), sol)
+        out_ref[...] = jnp.full(shp, px, jnp.uint32)
 
-    # Commands are one (T, 16, CAP) f32 array: sublane 0 is the tag (as a
-    # f32 -- values 1..8 are exact), sublanes 1..12 the operand words
-    # (words 8-11 carry the clip rect for draw commands), the command
-    # index on the lane axis.  A chunk slice is then (8, 128)-tile-aligned
-    # for any T (tiling inference is shape/dtype dependent, so layouts
-    # that slice single rows or partial sublane groups are not portable).
-    def chunk_dma(slot, ci):
-        return pltpu.make_async_copy(
-            cmds_hbm.at[t, :, pl.ds(ci * CMD_CHUNK, CMD_CHUNK)],
-            cmds_s.at[slot], sems.at[slot])
-
-    chunk_dma(0, 0).start()
-
-    # Command math is shared with the pure-XLA implementation
-    # (ops/cmd_math.py); each lifted branch reads its operand words from
-    # the SMEM chunk scratch (functions aren't JAX types, so the reader
-    # can't be passed through lax.switch).
-    def lift(cmd):
-        def branch(slot, j, r, g, b, df, area):
-            def arg(k):
-                return cmds_s[slot, 1 + k, j]
-            return cmd(arg, r, g, b, df, area)
-        return branch
-
-    def noop(slot, j, r, g, b, df, area):
-        return r, g, b, df, area
-
-    def debug_magenta(slot, j, r, g, b, df, area):
-        # Tags >= 10 (the clip/layer group extension) are NOT implemented
-        # by the DENSE path (the entry-stream kernel and ops/fine_xla.py
-        # carry the group stacks; the renderer's pallas path uses the
-        # entry stream).  Paint the reference's unknown-tag debug magenta
-        # (PietRender.metal:554-557) so a group command reaching this
-        # test-only kernel fails every image comparison loudly instead of
-        # silently no-opping.
-        one = jnp.ones_like(r)
-        return one, jnp.zeros_like(g), one, df, area
-
-    # Tag 9 (Bail) is a legitimate no-op: solid tiles are handled by the
-    # present fast path and excluded from comparisons.
-    ordered = (tuple(lift(c) for c in make_commands(X, Y, bar))
-               + (noop, debug_magenta))
-
-    def chunk_body(ci, state):
-        slot = jax.lax.rem(ci, 2)
-
-        @pl.when(ci + 1 < n_chunks)
-        def _():
-            chunk_dma(1 - slot, ci + 1).start()
-
-        chunk_dma(slot, ci).wait()
-
-        live = jnp.minimum(n - ci * CMD_CHUNK, CMD_CHUNK)
-
-        def cmd_body(j, st):
-            r, g, b, df, area = st
-            tag = cmds_s[slot, 0, j].astype(jnp.int32)
-            idx = jnp.clip(tag - 2, 0, 8)
-            return jax.lax.switch(idx, ordered, slot, j, r, g, b, df, area)
-
-        return jax.lax.fori_loop(0, live, cmd_body, state)
-
-    shp = (tile_h, tile_w)
-    state0 = (jnp.ones(shp, jnp.float32), jnp.ones(shp, jnp.float32),
-              jnp.ones(shp, jnp.float32), jnp.full(shp, DF_INIT, jnp.float32),
-              jnp.zeros(shp, jnp.float32))
-    r, g, b, _, _ = jax.lax.fori_loop(0, n_chunks, chunk_body, state0)
-
-    # Deterministic sRGB encode + RGBA8 pack (shared definition,
-    # ops/cmd_math.py; rationale in scene/color.py::linear_to_srgb_det).
-    packed = pack_rgba8(r, g, b, bar)
-    out_ref[0] = packed
-
-
-@functools.partial(jax.jit, static_argnames=("tile_h", "tile_w",
-                                             "cmd_capacity", "interpret"))
-def fine_rasterize(counts: jax.Array, tags: jax.Array, args: jax.Array,
-                   row0=0, *, tile_h: int, tile_w: int, cmd_capacity: int,
-                   interpret: bool = False) -> jax.Array:
-    """Rasterize all tiles.
-
-    Args:
-      counts: (tiles_y, tiles_x) int32 live-command counts.
-      tags: (T, CAP) int32 command tags (T = tiles_y * tiles_x, row-major).
-      args: (T, CAP * ARG_WORDS) float32 flattened command operands
-        (ARG_WORDS = 12; words 8-11 carry the draw-command clip rect).
-
-    ``row0``: first tile row of this shard's slab (traced OK) -- pixel
-    coordinates are absolute, output shape is the local slab.
-
-    Returns:
-      (tiles_y * tile_h, tiles_x * tile_w) uint32 packed RGBA8 pixels.
-    """
-    tiles_y, tiles_x = counts.shape
-    n_tiles = tiles_y * tiles_x
-    if cmd_capacity % CMD_CHUNK:
-        raise ValueError(f"cmd_capacity must be a multiple of {CMD_CHUNK}")
-    kernel = functools.partial(
-        _fine_kernel, tile_h=tile_h, tile_w=tile_w,
-        cmd_capacity=cmd_capacity, tiles_x=tiles_x, interpret=interpret)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(n_tiles,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.HBM),   # merged tag+arg words
-        ],
-        out_specs=pl.BlockSpec((1, tile_h, tile_w),
-                               lambda t, c, r0: (t, 0, 0),
-                               memory_space=pltpu.VMEM),
-        scratch_shapes=[
-            pltpu.SMEM((2, 16, CMD_CHUNK), jnp.float32),
-            pltpu.SemaphoreType.DMA((2,)),
-        ],
-    )
-    tiles_fn = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((n_tiles, tile_h, tile_w),
-                                       jnp.uint32),
-        interpret=interpret,
-    )
-    cmds = jnp.concatenate(
-        [tags.astype(jnp.float32)[:, None, :],
-         args.reshape(n_tiles, cmd_capacity, ARG_WORDS)
-         .transpose(0, 2, 1),
-         jnp.zeros((n_tiles, 15 - ARG_WORDS, cmd_capacity), jnp.float32)],
-        axis=1)
-    tiles = tiles_fn(counts.reshape(-1),
-                     jnp.asarray(row0, jnp.int32).reshape(1), cmds)
-    return (tiles.reshape(tiles_y, tiles_x, tile_h, tile_w)
-            .transpose(0, 2, 1, 3)
-            .reshape(tiles_y * tile_h, tiles_x * tile_w))
-
-
-# ---------------------------------------------------------------------------
-# Entry-stream fine rasterizer: consumes the coarse pass's sorted entry
-# stream directly (ops/coarse.py::CoarseEntries) -- per tile, a contiguous
-# range [first, first + n) of 2-slot entries.  Removes the dense (T, CAP)
-# PTCL entirely: no coarse-side scatter, no per-tile capacity, no overflow.
-# DMA granularity is a SUPERCHUNK of SC_BLOCKS 128-entry blocks: chunk-loop
-# machinery (DMA start/wait + loop-boundary state motion) costs several
-# microseconds per iteration on TPU -- far more than interpreting the
-# entries -- so the chunk must cover virtually every tile in ONE iteration.
-# A tile's range starts mid-block; the first block is fetched whole and
-# `skip` lanes are ignored (DMA time is latency-dominated, so fetching
-# 32 KiB costs the same as 8 KiB).
-
-SC_BLOCKS = 4                      # 512 entries per superchunk
-SC_ENTRIES = SC_BLOCKS * 128
-
-
-def _fine_entries_kernel(first_ref, n_ref, solid_ref, row0_ref, stream_hbm,
-                         out_ref, cmds_s, df_s, area_s, r_s, g_s, b_s,
-                         cov_s, sv_r, sv_g, sv_b, depth_s, sems, resid_s,
-                         px_s, *, tile_h: int, tile_w: int, tiles_x: int,
-                         tpb: int, direct: bool, paired: bool,
-                         runs: bool, interpret: bool):
-    if interpret:
-        bar = jax.lax.optimization_barrier  # best-effort (see cmd_math.py)
-    else:
-        def bar(x):
-            # Mosaic: identity (optimization_barrier has no TPU
-            # lowering; also unnecessary -- Mosaic emits uncontracted,
-            # exactly-rounded mul+add at every tested tile shape, and the
-            # former 32-row divergence was the non-IEEE device sqrt/div
-            # reaching the u8 rounding, fixed structurally in round 4 --
-            # see ops/cmd_math.py precision policy).
-            return x
-
-    # Multi-tile grid blocks: one grid step interprets ``tpb``
-    # consecutive tiles (VERDICT r4 item: the per-STEP fixed cost --
-    # grid sequencing, out-window DMA, scalar prologue -- dominated
-    # the 4K tiger's fine time at ~2 us/tile x 2040 tiles; tiles
-    # average only ~18 entries there).  The tile loop is a fori_loop,
-    # so kernel code size does not scale with tpb; packed pixels land
-    # in the px_s scratch at a dynamic sublane index and are copied
-    # to the output window with static slices after the loop.
-    step = pl.program_id(0)
-    n_tiles_total = pl.num_programs(0) * tpb
-
-    def tile_body(k, _):
-        t = step * tpb + k
+    @pl.when(n > 0)
+    def _():
         fe = first_ref[t]
-        n = n_ref[t]
         ty = row0_ref[0] + t // tiles_x
         tx = t % tiles_x
-        x0 = (tx * tile_w).astype(jnp.float32)
-        y0 = (ty * tile_h).astype(jnp.float32)
-        X = x0 + jax.lax.broadcasted_iota(
-            jnp.int32, (tile_h, tile_w), 1).astype(jnp.float32)
-        Y = y0 + jax.lax.broadcasted_iota(
-            jnp.int32, (tile_h, tile_w), 0).astype(jnp.float32)
+        X = (tx * tile_w).astype(f32) + jax.lax.broadcasted_iota(
+            jnp.int32, shp, 1).astype(f32)
+        Y = (ty * tile_h + s * strip_h).astype(f32) + \
+            jax.lax.broadcasted_iota(jnp.int32, shp, 0).astype(f32)
+        ones = jnp.ones(shp, f32)
 
-        # ---- superchunk residency (direct-mapped stream cache) --------------
-        # The stream is sorted by tile, so consecutive tiles' entries live in
-        # the SAME absolute 512-entry superchunk (~23 tiles/chunk at the 4K
-        # tiger's 22.5 entries/tile).  Superchunks are ABSOLUTE (aligned at
-        # c * SC_ENTRIES) and cached direct-mapped in the 4 scratch slots
-        # (slot = c & 3): a resident chunk is reused across tiles with zero
-        # DMA, removing both the ~23x redundant stream traffic and the
-        # per-tile DMA wait that dominated the per-tile fixed cost
-        # (tools/fine_entry_bench.py: 1.2-3.4 us/tile intercept).  Scratch
-        # persists across the sequential grid; resid_s[0:4] holds each slot's
-        # resident chunk id, resid_s[4:8] an in-flight (started, un-awaited)
-        # chunk id, both -1 when empty.  Every started DMA is drained: an
-        # inflight mark is only ever set for a chunk some later ensure() on
-        # that exact slot will wait for (in-tile prefetches by this tile's
-        # next chunk iteration; cross-tile prefetches by the next live tile's
-        # first ensure, issued under the same n_ref[t+1] > 0 predicate).
-        c0 = fe // SC_ENTRIES
-        skip = fe - c0 * SC_ENTRIES
-        total = skip + n
-        n_chunks = jnp.maximum(pl.cdiv(total, SC_ENTRIES), 1)
+        def sync():
+            # Scratch planes are written and read back by the same program;
+            # barriers around each write order it against its threads'
+            # earlier and later reads.
+            if not interpret:
+                plt.debug_barrier()
 
-        @pl.when(t == 0)
-        def _():
-            for s in range(4):
-                resid_s[s] = -1
-                resid_s[4 + s] = -1
+        def cov_plane(cdep):
+            """Current clip-stack coverage (exactly 1.0 with no open clip)."""
+            return jax.lax.cond(cdep > 0,
+                                lambda: stack_ref[jnp.maximum(cdep, 1) - 1],
+                                lambda: ones)
 
-        def chunk_dma(c, slot):
-            # stream_hbm carries SC_BLOCKS zero blocks of tail padding, so the
-            # last superchunk slice never runs off the end.
-            return pltpu.make_async_copy(
-                stream_hbm.at[pl.ds(c * SC_BLOCKS, SC_BLOCKS)],
-                cmds_s.at[slot], sems.at[slot])
+        # ---- per-entry branches: (e, state) -> state -------------------
+        # state = (r, g, b, df2, area, clip depth, layer depth); df2 is the
+        # SQUARED line field (min commutes with the monotone sqrt, which the
+        # stroke resolve applies; cmd_math.line_field_sq).
+        def s0(e):
+            return lambda k: stream_ref[e, W_S0_ARG + k]
 
-        def ensure(c):
-            """Make chunk c resident in its slot (drain-then-fetch)."""
-            slot = c & 3
+        def s1(e):
+            return lambda k: stream_ref[e, W_S1_ARG + k]
 
-            @pl.when(resid_s[4 + slot] >= 0)
-            def _():
-                chunk_dma(resid_s[4 + slot], slot).wait()
-                resid_s[slot] = resid_s[4 + slot]
-                resid_s[4 + slot] = -1
+        def line(arg, st):
+            r, g, b, df, area, cd, ld = st
+            return (r, g, b, jnp.minimum(df, line_field_sq(arg, X, Y, bar)),
+                    area, cd, ld)
 
-            @pl.when(resid_s[slot] != c)
-            def _():
-                chunk_dma(c, slot).start()
-                chunk_dma(c, slot).wait()
-                resid_s[slot] = c
+        def fill(arg, st):
+            r, g, b, df, area, cd, ld = st
+            m, d = fill_delta(arg, X, Y, bar)
+            return r, g, b, df, jnp.where(m, area + d, area), cd, ld
 
-        def prefetch(c):
-            """Start fetching chunk c if neither resident nor in flight."""
-            slot = c & 3
+        def keep(e, st):
+            return st
 
-            @pl.when((resid_s[slot] != c) & (resid_s[4 + slot] < 0))
-            def _():
-                chunk_dma(c, slot).start()
-                resid_s[4 + slot] = c
+        def s0_line(e, st):
+            return line(s0(e), st)
 
-        # Draw resolves multiply the clip-STACK coverage plane (group
-        # extension); unclipped tiles read the constant-1.0 plane 0 (an exact
-        # bitwise no-op multiply).
-        cmds = make_commands(X, Y, bar, cov=lambda: cov_s[depth_s[0]])
-        grad_lin, grad_rad = make_grad_commands(
-            X, Y, bar, cov=lambda: cov_s[depth_s[0]])
-        shp = (tile_h, tile_w)
+        def s0_edge(e, st):
+            r, g, b, df, area, cd, ld = st
+            return r, g, b, df, area + edge_delta(s0(e), Y, bar), cd, ld
 
-        # ---- state in VMEM scratch -----------------------------------------
-        # ALL pixel state (r/g/b/df/area) lives in VMEM scratch refs; the
-        # entry loop carries nothing, and runs 4x unrolled (plus a tail loop).
-        # Fill/line updates touch the FULL tile: the on-chip delivery bench
-        # (tools/arg_delivery_bench.py) measured the full-tile branch-free
-        # update at ~37 ns/entry at ANY tile height 8..32 (extra vregs hide
-        # under scalar/vector overlap), while the former row-windowed dynamic
-        # slice path cost ~54 ns/entry in window LOGIC alone -- and at the
-        # production 32-row tile only 20-38% of BASELINE entries even fit an
-        # 8-row window (tools/group_stats.py), so most entries paid the
-        # window math AND the full-tile update.  Deleting the window bought
-        # 8.03 -> 7.42 ms on the 4K tiger and 40.2 -> 34.5 ms on beziers_10k
-        # (tools/time_config.py A/B, round 3).  The dispatch uses predicated
-        # blocks (untaken classes' operand reads are SKIPPED -- scalar reads
-        # are near-free but Mosaic still schedules them) and shift/mask index
-        # decomposition.
-        #
-        # df accumulates the SQUARED line field: min commutes bit-exactly with
-        # the correctly rounded monotone sqrt, deferred to the stroke resolve.
-        # (Area-delta QUANTIZATION was tried here and reverted: Mosaic's
-        # non-correctly-rounded division makes any rounding boundary amplify
-        # 1-ulp device-vs-oracle noise into visible codes -- see the NOTE in
-        # cmd_math.py.  Entry interpretation stays strictly sequential.)
+        def s0_fill(e, st):
+            return fill(s0(e), st)
 
-        UNROLL = 4
+        def s1_fill(e, st):
+            return fill(s1(e), st)
 
-        def chunk_body(ci, _):
-            # Chunk ids are consumed in NONDECREASING order across the whole
-            # grid (first_ref is sorted by tile; in-tile chunks ascend) --
-            # the direct-mapped marking relies on it: once a prefetch starts
-            # overwriting a slot, the chunk it evicts can never be wanted
-            # again, so the stale resid_s entry is harmless until ensure()
-            # retargets it.
-            c = c0 + ci
+        def s1_line(e, st):
+            # Paired second line: slot-1 word 4 carries inv_denom (slot-0
+            # word 5; ops/pairing.py).
+            a1 = s1(e)
+            return line(lambda k: a1(4 if k == 5 else k), st)
 
-            @pl.when(ci + 1 < n_chunks)
-            def _():
-                prefetch(c + 1)
+        # Tail commands: the resolves and group commands (one per (item,
+        # tile)).
+        def lift(i):
+            def branch(e, st):
+                r, g, b, df, area, cd, ld = st
+                cmds = make_commands(X, Y, bar, cov=lambda: cov_plane(cd))
+                r, g, b, _, area = cmds[i](s0(e), r, g, b, df, area)
+                return r, g, b, df, area, cd, ld
+            return branch
 
-            ensure(c)
-            slot = c & 3
+        def stroke(e, st):
+            r, g, b, df, area, cd, ld = st
+            cmds = make_commands(X, Y, bar, cov=lambda: cov_plane(cd))
+            r, g, b, _, _ = cmds[3](s0(e), r, g, b, ieee_sqrt(df, bar),
+                                    area)
+            return (r, g, b, jnp.full(shp, DF2_INIT, f32), area, cd, ld)
 
-            # ---- shared unpaired fill/line evaluators (run dispatch) --------
-            # One plain fill / one line over the full tile -- exactly the
-            # unpaired math of accum_entry below, shared by the run bodies
-            # and the edge-entry slot-1 fill.
-            def fill_one(s1arg):
-                m, d = fill_delta(s1arg, X, Y, bar)
-                area_s[:] = jnp.where(m, area_s[:] + d, area_s[:])
+        def grad(radial):
+            def branch(e, st):
+                r, g, b, df, area, cd, ld = st
+                lin, rad = make_grad_commands(X, Y, bar,
+                                              cov=lambda: cov_plane(cd))
+                cmd = rad if radial else lin
+                r, g, b, _, area = cmd(s0(e), r, g, b, df, area)
+                return r, g, b, df, area, cd, ld
+            return branch
 
-            def line_one(s0arg):
-                df_s[:] = jnp.minimum(df_s[:],
-                                      line_field_sq(s0arg, X, Y, bar))
+        def begin_clip(e, st):
+            r, g, b, df, area, cd, ld = st
+            a = s0(e)
+            ca = clip_alpha(area + a(0), a(1), bar)
+            nd = jnp.minimum(cd + 1, D)
+            cov = cov_plane(cd) * ca
+            sync()
+            stack_ref[nd - 1] = cov
+            sync()
+            return r, g, b, df, jnp.zeros(shp, f32), nd, ld
 
-            def accum_entry(j):
-                """One entry: predicated class blocks (fewest scalar reads --
-                the scalar unit is a measured per-entry bottleneck, so the
-                untaken classes' operand reads are skipped, and the entry
-                index decomposes by shift/mask, not div/rem)."""
-                blk = jax.lax.shift_right_logical(j, 7)
-                lane = j & 127
+        def end_clip(e, st):
+            r, g, b, df, area, cd, ld = st
+            return r, g, b, df, area, jnp.maximum(cd - 1, 0), ld
 
-                def s0arg(k):
-                    return cmds_s[slot, blk, W_S0_ARG + k, lane]
+        def begin_layer(e, st):
+            r, g, b, df, area, cd, ld = st
+            lv = jnp.minimum(ld, D - 1)
+            sync()
+            stack_ref[D + 3 * lv] = r
+            stack_ref[D + 3 * lv + 1] = g
+            stack_ref[D + 3 * lv + 2] = b
+            sync()
+            return r, g, b, df, area, cd, lv + 1
 
-                def s1arg(k):
-                    return cmds_s[slot, blk, W_S1_ARG + k, lane]
+        def end_layer(e, st):
+            r, g, b, df, area, cd, ld = st
+            alpha = s0(e)(0)
+            lv = jnp.maximum(ld - 1, 0)
 
-                tag0 = cmds_s[slot, blk, W_S0_TAG, lane].astype(jnp.int32)
+            def mix(c, cur):
+                sv = stack_ref[D + 3 * lv + c]
+                return sv + bar((cur - sv) * alpha)
 
-                # Entry pairing (see ops/coarse.py): an entry may carry TWO
-                # same-class records of one (tile, item) -- two Lines (L2) or
-                # two plain Fills (F2) -- halving the per-entry dispatch for
-                # the dominant classes.  Slot 0 applies BEFORE slot 1, which
-                # preserves the oracle's exact sequential accumulation order
-                # (min is commutative anyway; fill adds stay in segment
-                # order).  The pair tests are NESTED (taken-class only) so
-                # the top-level dispatch test count is unchanged -- a new
-                # top-level branch measured +3.5 ms at 4K (ROADMAP dead-end).
-                if runs:
-                    # Lines are ALWAYS run entries (W_RUN < 0), dispatched by
-                    # the while-loop run driver -- this path never sees one.
-                    pass
-                else:
-                    line_block(tag0, slot, blk, lane, s0arg, s1arg)
+            return mix(0, r), mix(1, g), mix(2, b), df, area, cd, lv
 
-                @pl.when(tag0 == CMD_FILL_EDGE)
-                def _():
-                    area_s[:] = area_s[:] + edge_delta(s0arg, Y, bar)
+        def wind(e, st):
+            r, g, b, df, area, cd, ld = st
+            return r, g, b, df, area + s0(e)(0), cd, ld
 
-                if runs:
-                    # Slot-1 fills here ride edge entries only (plain fills
-                    # are run entries); unpaired math, shared helper.
-                    @pl.when(cmds_s[slot, blk, W_S1_TAG, lane]
-                             == float(CMD_FILL))
-                    def _():
-                        fill_one(s1arg)
-                else:
-                    fill_block(tag0, slot, blk, lane, s0arg, s1arg)
+        tail = ((CMD_DRAW_FILL, lift(5)), (CMD_STROKE, stroke),
+                (CMD_SOLID, lift(6)), (CMD_CIRCLE, lift(0)),
+                (CMD_DRAW_LIN_GRAD, grad(False)),
+                (CMD_DRAW_RAD_GRAD, grad(True)), (CMD_WIND, wind),
+                (CMD_BEGIN_CLIP, begin_clip), (CMD_END_CLIP, end_clip),
+                (CMD_BEGIN_LAYER, begin_layer), (CMD_END_LAYER, end_layer))
 
-                resolve_block(tag0, s0arg)
-                group_block(tag0, s0arg)
+        def body(e, st):
+            tag0 = stream_ref[e, W_S0_TAG]
+            tag1 = stream_ref[e, W_S1_TAG]
+            st = _dispatch(
+                [(tag0 == 0.0, keep), (tag0 == f32(CMD_LINE), s0_line),
+                 (tag0 == f32(CMD_FILL_EDGE), s0_edge),
+                 (tag0 == f32(CMD_FILL), s0_fill)]
+                + [(tag0 == f32(tag), fn) for tag, fn in tail], keep, e, st)
+            # Gradient resolves carry c0 alpha in word 8 (in [0, 1], never
+            # a slot-1 tag; layout/entry_stream.py).
+            return _dispatch([(tag1 == f32(CMD_FILL), s1_fill),
+                              (tag1 == f32(CMD_LINE), s1_line)], keep, e, st)
 
-            def line_block(tag0, slot, blk, lane, s0arg, s1arg):
-                @pl.when(tag0 == CMD_LINE)
-                def _():
-                    df_s[:] = jnp.minimum(df_s[:],
-                                          line_field_sq(s0arg, X, Y, bar))
-                    if paired:
-                        # Paired second line: slot-1 word 4 carries
-                        # inv_denom (slot-0 word 5; see ops/pairing.py).
-                        def s1line(k):
-                            return s1arg(4 if k == 5 else k)
-
-                        @pl.when(cmds_s[slot, blk, W_S1_TAG, lane]
-                                 == float(CMD_LINE))
-                        def _():
-                            df_s[:] = jnp.minimum(
-                                df_s[:], line_field_sq(s1line, X, Y, bar))
-
-            def fill_block(tag0, slot, blk, lane, s0arg, s1arg):
-                @pl.when(cmds_s[slot, blk, W_S1_TAG, lane] == float(CMD_FILL))
-                def _():
-                    if paired:
-                        # Slot-0 fill (F2 pair) applies BEFORE slot 1,
-                        # preserving the oracle's accumulation order.
-                        @pl.when(tag0 == CMD_FILL)
-                        def _():
-                            mask0, delta0 = fill_delta(s0arg, X, Y, bar)
-                            area_s[:] = jnp.where(mask0, area_s[:] + delta0,
-                                                  area_s[:])
-
-                    mask, delta = fill_delta(s1arg, X, Y, bar)
-                    area_s[:] = jnp.where(mask, area_s[:] + delta, area_s[:])
-
-            def resolve_block(tag0, s0arg):
-                # Each resolve class under its own predicate, writing ONLY
-                # the planes it changes, in place.  The previous structure (a
-                # lax.switch whose branches returned ALL FIVE state planes,
-                # then unconditional full-state writeback) made Mosaic
-                # materialize copy-through moves of the untouched planes per
-                # resolve entry; untaken pl.when branches are ~1 ns each
-                # (tools/arg_delivery_bench.py disp16).  Arithmetic is
-                # cmd_math's evaluators unchanged: bitwise identical.
-                # make_commands order: circle, line, fill, stroke, fill_edge,
-                # draw_fill, solid.
-                @pl.when(tag0 == CMD_CIRCLE)
-                def _():
-                    r2, g2, b2, _, _ = cmds[0](s0arg, r_s[:], g_s[:], b_s[:],
-                                               df_s[:], area_s[:])
-                    r_s[:], g_s[:], b_s[:] = r2, g2, b2
-
-                @pl.when(tag0 == CMD_STROKE)
-                def _():
-                    # Un-square the accumulated field (exact; see above).
-                    df = ieee_sqrt(df_s[:], bar)
-                    r2, g2, b2, _, _ = cmds[3](s0arg, r_s[:], g_s[:], b_s[:],
-                                               df, area_s[:])
-                    r_s[:], g_s[:], b_s[:] = r2, g2, b2
-                    df_s[:] = jnp.full(shp, DF2_INIT, jnp.float32)
-
-                @pl.when(tag0 == CMD_DRAW_FILL)
-                def _():
-                    r2, g2, b2, _, area2 = cmds[5](s0arg, r_s[:], g_s[:],
-                                                   b_s[:], df_s[:], area_s[:])
-                    r_s[:], g_s[:], b_s[:] = r2, g2, b2
-                    area_s[:] = area2
-
-                @pl.when(tag0 == CMD_SOLID)
-                def _():
-                    r2, g2, b2, _, _ = cmds[6](s0arg, r_s[:], g_s[:], b_s[:],
-                                               df_s[:], area_s[:])
-                    r_s[:], g_s[:], b_s[:] = r2, g2, b2
-
-            def group_block(tag0, s0arg):
-                # -- clip / layer group commands (extension; rare) -----------
-                # ONE extra branch test on the hot path; the inner whens only
-                # lower inside it.  Depth counters live in SMEM
-                # (depth_s[0] = clip, depth_s[1] = layer); cov planes and the
-                # saved-rgb layer stack in VMEM scratch.
-                @pl.when(tag0 >= CMD_BEGIN_CLIP)
-                def _():
-                    @pl.when(tag0 == CMD_BEGIN_CLIP)
-                    def _():
-                        d = depth_s[0]
-                        x = area_s[:] + s0arg(0)
-                        ca = clip_alpha(x, s0arg(1), bar)
-                        nd = jnp.minimum(d + 1, MAX_GROUP_DEPTH)
-                        cov_s[nd] = cov_s[d] * ca
-                        depth_s[0] = nd
-                        area_s[:] = jnp.zeros(shp, jnp.float32)
-
-                    @pl.when(tag0 == CMD_END_CLIP)
-                    def _():
-                        depth_s[0] = jnp.maximum(depth_s[0] - 1, 0)
-
-                    @pl.when(tag0 == CMD_BEGIN_LAYER)
-                    def _():
-                        ld = jnp.minimum(depth_s[1], MAX_GROUP_DEPTH - 1)
-                        sv_r[ld] = r_s[:]
-                        sv_g[ld] = g_s[:]
-                        sv_b[ld] = b_s[:]
-                        depth_s[1] = ld + 1
-
-                    @pl.when(tag0 == CMD_END_LAYER)
-                    def _():
-                        alpha = s0arg(0)
-                        ld = jnp.maximum(depth_s[1] - 1, 0)
-                        r_s[:] = sv_r[ld] + (r_s[:] - sv_r[ld]) * alpha
-                        g_s[:] = sv_g[ld] + (g_s[:] - sv_g[ld]) * alpha
-                        b_s[:] = sv_b[ld] + (b_s[:] - sv_b[ld]) * alpha
-                        depth_s[1] = ld
-
-                    # Gradient resolves (2-stop brush extension): operand
-                    # words ride s0arg(0..11) -- word 8 (W_S1_TAG) carries
-                    # arg 7, legal because the payload there (c0 alpha) is
-                    # in [0,1] and never a valid tag (entry_stream.py).
-                    def _apply_grad(cmd):
-                        r2, g2, b2, _, area2 = cmd(
-                            s0arg, r_s[:], g_s[:], b_s[:], df_s[:], area_s[:])
-                        r_s[:], g_s[:], b_s[:] = r2, g2, b2
-                        area_s[:] = area2
-
-                    @pl.when(tag0 == CMD_DRAW_LIN_GRAD)
-                    def _():
-                        _apply_grad(grad_lin)
-
-                    @pl.when(tag0 == CMD_DRAW_RAD_GRAD)
-                    def _():
-                        _apply_grad(grad_rad)
-
-                    # Winding carry (multi-subpath fill extension): a CONT
-                    # subpath's interior backdrop; resolved by the group's
-                    # final DrawFill.
-                    @pl.when(tag0 == CMD_WIND)
-                    def _():
-                        area_s[:] = area_s[:] + s0arg(0)
-
-            lo = jnp.where(ci == 0, skip, 0)
-            hi = jnp.minimum(total - ci * SC_ENTRIES, SC_ENTRIES)
-
-            if runs:
-                # ---- run dispatch (W_RUN, see layout/entry_stream.py) -------
-                # A maximal streak of adjacent same-class entries -- plain
-                # fills (+L) or lines (-L) -- interprets under ONE class test:
-                # the inner fori_loop does only the operand reads + vector
-                # math per entry, no tag read and no dispatch branches.  Entry
-                # ORDER is unchanged (the dispatch is hoisted, not the math),
-                # so images are bit-identical to the per-entry path.  Runs are
-                # clamped at the superchunk edge; every entry stores its
-                # REMAINING length, so the next chunk resumes mid-run.
-                def run_cond(j):
-                    return j < hi
-
-                def run_body(j):
-                    blk = jax.lax.shift_right_logical(j, 7)
-                    lane = j & 127
-                    rw = cmds_s[slot, blk, W_RUN, lane]
-                    L = jnp.minimum(jnp.abs(rw).astype(jnp.int32), hi - j)
-
-                    # Run bodies are 4x unrolled (same entries, same
-                    # order -- bit-identical; loop-carry overhead was a
-                    # measured ~60-70 ns/entry gap between the real
-                    # kernel and the isolated update math,
-                    # tools/fine_entry_bench.py vs arg_delivery_bench).
-                    def one_at(jj, fn, base):
-                        b2 = jax.lax.shift_right_logical(jj, 7)
-                        l2 = jj & 127
-                        fn(lambda q: cmds_s[slot, b2, base + q, l2])
-
-                    def unrolled(fn, base):
-                        def quad(qq, _):
-                            for u in range(UNROLL):
-                                one_at(j + qq * UNROLL + u, fn, base)
-                            return 0
-
-                        def tail(kk, _):
-                            one_at(kk, fn, base)
-                            return 0
-
-                        jax.lax.fori_loop(0, L // UNROLL, quad, 0)
-                        jax.lax.fori_loop(j + (L // UNROLL) * UNROLL,
-                                          j + L, tail, 0)
-
-                    @pl.when(rw > 0.0)
-                    def _():
-                        unrolled(fill_one, W_S1_ARG)
-
-                    @pl.when(rw < 0.0)
-                    def _():
-                        unrolled(line_one, W_S0_ARG)
-
-                    @pl.when(rw == 0.0)
-                    def _():
-                        accum_entry(j)
-
-                    return j + jnp.maximum(L, 1)
-
-                jax.lax.while_loop(run_cond, run_body, lo)
-                return 0
-
-            n_live = jnp.maximum(hi - lo, 0)
-
-            def quad_body(q, _):
-                j = lo + q * UNROLL
-                for u in range(UNROLL):
-                    accum_entry(j + u)
-                return 0
-
-            def tail_body(j, _):
-                accum_entry(j)
-                return 0
-
-            full = jax.lax.fori_loop(0, n_live // UNROLL, quad_body, 0)
-            jax.lax.fori_loop(lo + (n_live // UNROLL) * UNROLL, hi, tail_body,
-                              full)
-            return 0
-
-        def write(px):
-            px_s[k] = px
-
-        @pl.when(n == 0)
-        def _():
-            # Empty tile: the present fast path (PietRender.metal:34-44) --
-            # the bail solid's raw sRGB bytes, or the white background.
-            sol = solid_ref[t]
-            px = jnp.where(sol == 0, jnp.uint32(0xFFFFFFFF), sol)
-            write(jnp.full(shp, px, jnp.uint32))
-
-        @pl.when(n > 0)
-        def _():
-            df_s[:] = jnp.full(shp, DF2_INIT, jnp.float32)
-            area_s[:] = jnp.zeros(shp, jnp.float32)
-            r_s[:] = jnp.ones(shp, jnp.float32)
-            g_s[:] = jnp.ones(shp, jnp.float32)
-            b_s[:] = jnp.ones(shp, jnp.float32)
-            cov_s[0] = jnp.ones(shp, jnp.float32)
-            depth_s[0] = 0
-            depth_s[1] = 0
-            jax.lax.fori_loop(0, n_chunks, chunk_body, 0)
-            # Cross-tile prefetch: start fetching the next live tile's first
-            # chunk (a no-op when it is already resident -- the common case)
-            # so a chunk-boundary miss overlaps this tile's pack/write and
-            # the next tile's state init.  Drained by that tile's ensure(),
-            # issued under the same n_ref[t + 1] > 0 predicate.
-            @pl.when((t + 1 < n_tiles_total) & (n_ref[t + 1] > 0))
-            def _():
-                prefetch(first_ref[t + 1] // SC_ENTRIES)
-
-            write(pack_rgba8(r_s[:], g_s[:], b_s[:], bar))
-        return 0
-
-    jax.lax.fori_loop(0, tpb, tile_body, 0)
-    for k in range(tpb):
-        if direct:
-            out_ref[:, k * tile_w:(k + 1) * tile_w] = px_s[k]
-        else:
-            out_ref[k] = px_s[k]
-
-
-def _auto_tpb(tiles_x: int) -> int:
-    """Tiles per grid step: the largest divisor of tiles_x <= 8 (a tile
-    row must hold a whole number of output blocks).  Overridable with
-    PIET_FINE_TPB (the on-chip A/B knob)."""
-    env = os.environ.get("PIET_FINE_TPB", "auto")
-    if env != "auto":
-        v = int(env)
-        return v if v >= 1 and tiles_x % v == 0 else 1
-    for v in (8, 6, 5, 4, 3, 2):
-        if tiles_x % v == 0:
-            return v
-    return 1
+        st0 = (ones, ones, ones, jnp.full(shp, DF2_INIT, f32),
+               jnp.zeros(shp, f32), jnp.int32(0), jnp.int32(0))
+        r, g, b, *_ = jax.lax.fori_loop(fe, fe + n, body, st0)
+        out_ref[...] = pack_rgba8(r, g, b, bar)
 
 
 @functools.partial(jax.jit, static_argnames=("tile_h", "tile_w", "tiles_x",
-                                             "paired", "runs", "tpb",
-                                             "interpret"))
+                                             "strip_h", "interpret"))
 def fine_rasterize_entries(first: jax.Array, n_entries: jax.Array,
                            solid: jax.Array, stream: jax.Array, row0=0, *,
                            tile_h: int, tile_w: int, tiles_x: int,
-                           paired: bool = True,
-                           runs: bool = False, tpb: int = 0,
+                           strip_h: int = STRIP_H,
                            interpret: bool = False) -> jax.Array:
     """Rasterize all tiles from an entry stream (CoarseEntries).
 
@@ -742,86 +274,45 @@ def fine_rasterize_entries(first: jax.Array, n_entries: jax.Array,
       solid: (T,) uint32 present-format bail color bytes (0 = none); the
         present composite (reference C11) is fused into the kernel's
         empty-tile path.
-      stream: (E/128, 16, 128) f32 packed entry blocks.
+      stream: (E, ENTRY_WORDS) f32 entry rows (layout/entry_stream.py).
       row0: first tile row of this shard's slab (traced OK).
-      paired: whether the stream may carry paired (F2/L2) entries
-        (ops/pairing.py); False skips their nested dispatch entirely.
-      runs: enable run dispatch -- the stream's W_RUN word must carry
-        the coarse pass's run-length annotation (pair mode "off" only);
-        bitwise image-identical to the per-entry path, a pure perf knob.
+      strip_h: rows per program (clamped to the tile height).
 
     Returns:
       (T // tiles_x * tile_h, tiles_x * tile_w) uint32 packed RGBA8 pixels.
     """
     n_tiles = first.shape[0]
     tiles_y = n_tiles // tiles_x
-    # When the tile block is vreg-aligned, write framebuffer layout
-    # directly (no (T, th, tw) -> (H, W) transpose pass).
-    direct = (tile_w % 128 == 0) and (tile_h % 8 == 0)
-    if runs and paired:
-        raise ValueError("run dispatch requires an unpaired stream")
-    if tpb == 0:
-        tpb = _auto_tpb(tiles_x)
-    if tiles_x % tpb != 0 or n_tiles % tpb != 0:
-        raise ValueError(f"tpb {tpb} must divide tiles_x {tiles_x}")
+    strip_h = min(strip_h, tile_h)
+    if tile_h % strip_h or stream.shape[1] != ENTRY_WORDS:
+        raise ValueError(f"strip {strip_h} must divide tile_h {tile_h}; "
+                         f"stream rows must be {ENTRY_WORDS} words")
+    nst = tile_h // strip_h
     kernel = functools.partial(
-        _fine_entries_kernel, tile_h=tile_h, tile_w=tile_w, tiles_x=tiles_x,
-        tpb=tpb, direct=direct, paired=paired, runs=runs,
-        interpret=interpret)
-    xb = tiles_x // tpb
-    if direct:
-        out_specs = pl.BlockSpec(
-            (tile_h, tpb * tile_w),
-            lambda s, f, nn, so, r0: (s // xb, s % xb),
-            memory_space=pltpu.VMEM)
-        out_shape = jax.ShapeDtypeStruct(
-            (tiles_y * tile_h, tiles_x * tile_w), jnp.uint32)
-    else:
-        out_specs = pl.BlockSpec((tpb, tile_h, tile_w),
-                                 lambda s, f, nn, so, r0: (s, 0, 0),
-                                 memory_space=pltpu.VMEM)
-        out_shape = jax.ShapeDtypeStruct((n_tiles, tile_h, tile_w),
-                                         jnp.uint32)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=4,
-        grid=(n_tiles // tpb,),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.HBM)],
-        out_specs=out_specs,
-        scratch_shapes=[
-            pltpu.SMEM((4, SC_BLOCKS, ENTRY_WORDS, 128), jnp.float32),
-            pltpu.VMEM((tile_h, tile_w), jnp.float32),   # df (squared)
-            pltpu.VMEM((tile_h, tile_w), jnp.float32),   # area
-            pltpu.VMEM((tile_h, tile_w), jnp.float32),   # r
-            pltpu.VMEM((tile_h, tile_w), jnp.float32),   # g
-            pltpu.VMEM((tile_h, tile_w), jnp.float32),   # b
-            # Clip-coverage plane stack (plane 0 = constant 1.0) and the
-            # saved-rgb layer stack (the clip/layer group extension).
-            pltpu.VMEM((MAX_GROUP_DEPTH + 1, tile_h, tile_w), jnp.float32),
-            pltpu.VMEM((MAX_GROUP_DEPTH, tile_h, tile_w), jnp.float32),
-            pltpu.VMEM((MAX_GROUP_DEPTH, tile_h, tile_w), jnp.float32),
-            pltpu.VMEM((MAX_GROUP_DEPTH, tile_h, tile_w), jnp.float32),
-            pltpu.SMEM((2,), jnp.int32),                 # depths
-            pltpu.SemaphoreType.DMA((4,)),
-            # Superchunk residency: [0:4] resident chunk id per slot,
-            # [4:8] inflight chunk id per slot (-1 = empty).
-            pltpu.SMEM((8,), jnp.int32),
-            # Per-step packed-pixel staging (multi-tile grid blocks).
-            pltpu.VMEM((tpb, tile_h, tile_w), jnp.uint32),
-        ],
-    )
-    # SC_BLOCKS zero blocks of tail padding keep the last superchunk slice
-    # in bounds for tiles whose range ends near the stream's end.
-    stream_p = jnp.concatenate(
-        [stream, jnp.zeros((SC_BLOCKS,) + stream.shape[1:], stream.dtype)])
-    tiles = pl.pallas_call(
+        _fine_kernel, tile_h=tile_h, tile_w=tile_w, strip_h=strip_h,
+        tiles_x=tiles_x, interpret=interpret)
+    img, _ = pl.pallas_call(
         kernel,
-        grid_spec=grid_spec,
-        out_shape=out_shape,
+        grid=(n_tiles, nst),
+        in_specs=[pl.BlockSpec()] * 5,
+        out_specs=[
+            pl.BlockSpec((strip_h, tile_w),
+                         lambda t, s: ((t // tiles_x) * nst + s,
+                                       t % tiles_x)),
+            pl.BlockSpec((None, STACK_PLANES, strip_h, tile_w),
+                         lambda t, s: (t * nst + s, 0, 0, 0)),
+        ],
+        out_shape=[
+            jax.ShapeDtypeStruct((tiles_y * tile_h, tiles_x * tile_w),
+                                 jnp.uint32),
+            jax.ShapeDtypeStruct((n_tiles * nst, STACK_PLANES, strip_h,
+                                  tile_w), jnp.float32),
+        ],
+        backend="triton",
+        compiler_params=plt.CompilerParams(num_warps=NUM_WARPS,
+                                           num_stages=1),
         interpret=interpret,
-    )(first, n_entries, solid,
-      jnp.asarray(row0, jnp.int32).reshape(1), stream_p)
-    if direct:
-        return tiles
-    return (tiles.reshape(tiles_y, tiles_x, tile_h, tile_w)
-            .transpose(0, 2, 1, 3)
-            .reshape(tiles_y * tile_h, tiles_x * tile_w))
+        name="fine_entries",
+    )(first, n_entries, solid, jnp.asarray(row0, jnp.int32).reshape(1),
+      stream)
+    return img

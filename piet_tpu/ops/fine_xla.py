@@ -8,15 +8,14 @@ dispatch vectorized as compute-all-branches + select (the standard vmap
 lowering of ``lax.switch``).
 
 Roles:
-* a portable fallback so the renderer also runs on CPU/GPU backends
-  (bit-exact to the oracle on TPU; within the documented FMA tolerance
-  through XLA:CPU -- see cmd_math.py),
+* the plain reference the GPU kernel (ops/fine.py) is compared with, and
+  the path ``fine_impl="auto"`` takes off the GPU (within the documented
+  FMA tolerance through XLA:CPU -- see tests/_imgcmp.py),
 * the fast CPU test vehicle for the shared command math.
 
-On TPU the Pallas kernel (ops/fine.py) is strictly better: it skips dead
-command slots per tile and streams the PTCL through SMEM; this version
-pays the full ``max(counts)`` trip count for every tile, evaluating all
-seven branches.
+It pays the full ``max(counts)`` trip count for every tile and evaluates
+all fifteen branches per command: on the H100 it is three orders of
+magnitude slower than the kernel, which walks each tile's own entries.
 """
 
 from __future__ import annotations
@@ -37,7 +36,7 @@ from .cmd_math import (DF_INIT, clip_alpha, make_commands,
 def fine_rasterize_xla(counts: jax.Array, tags: jax.Array, args: jax.Array,
                        row0=0, *, tile_h: int, tile_w: int,
                        cmd_capacity: int) -> jax.Array:
-    """Rasterize all tiles; same contract as ops/fine.py::fine_rasterize.
+    """Rasterize all tiles from the dense (T, CAP) PTCL.
 
     Args:
       counts: (tiles_y, tiles_x) int32 live-command counts.

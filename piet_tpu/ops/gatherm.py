@@ -1,199 +1,15 @@
-"""Pallas windowed monotone gather (the coarse pass's row-fetch engine).
+"""Row gathers at monotone indices.
 
-After the expansion engine (ops/expand.py) removed the scatter/cummax
-machinery, the coarse pass's remaining scalar-core row fetches are plain
-gathers at MONOTONE indices -- ``out[p] = rows[idx[p]]`` with ``idx``
-nondecreasing:
-
-* segment endpoint fetches ``points[i0]`` / ``points[i0 + 1]`` (i0 is
-  nondecreasing because items are encoded in order and each item's
-  segments walk its point block front to back; the fill wrap-around
-  endpoint is overridden from a carried per-item first point, see
-  ops/coarse.py),
-* the backdrop row-start base ``csum[cand_row_start - 1]``
-  (cand_row_start is nondecreasing because candidates expand item- and
-  row-major).
-
-XLA lowers such gathers to the scalar core at ~15 cycles per element.
-Monotonicity makes them dense-friendly: the rows feeding any block of
-``BLK`` consecutive output slots lie in a contiguous source window
-(``[min_k idx_k[first], max_k idx_k[last]]`` -- a cheap O(P/BLK) strided
-precompute, no scatter), so the gather is ONE one-hot MXU matmul per
-window: ``M[p, s] = (idx[p] == window_start + s)``.
-
-Exact 32-bit transport: as in ops/expand.py, each row word ships as four
-8-bit integer quarters in bf16 (exact in bf16's 8-bit mantissa); each
-output slot matches exactly one unit-weight window lane, so the f32 MXU
-accumulation reproduces the source word bit-for-bit (pinned by
-tests/test_gatherm.py).  K index streams share one window walk and one
-window DMA (the kernel emits K outputs).
-
-Reference context: the reference's tiler reads segment endpoints with
-raw pointer arithmetic inside the ballot walk (PietRender.metal:258-264);
-this is the TPU-native equivalent of those loads.
+The coarse pass fetches rows at nondecreasing indices: segment endpoints
+``points[i0]`` / ``points[i0 + 1]`` and the backdrop row-start base
+``csum[cand_row_start - 1]``.  XLA:GPU lowers these to native gathers.
 """
 
 from __future__ import annotations
 
-import functools
-import os
-
 import jax
-import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-#: Output slots per grid block.
-BLK = 1024
-#: Source-window lanes per DMA sub-window (128-aligned).
-WIN = 512
-
-
-def _make_kernel(n_streams: int, sync_dma: bool):
-    def kernel(lo_ref, nsub_ref, idx_ref, rows_hbm, *rest):
-        outs = rest[:n_streams]
-        wbuf, sems = rest[n_streams], rest[n_streams + 1]
-        b = pl.program_id(0)
-        nb = pl.num_programs(0)
-
-        def dma(slot, blk_ix, sub):
-            # Window starts are 128-aligned by construction; Mosaic needs
-            # the hint to allow a sublane-dimension HBM slice.
-            start = pl.multiple_of(lo_ref[blk_ix] + sub * WIN, 128)
-            return pltpu.make_async_copy(
-                rows_hbm.at[pl.ds(start, WIN), :], wbuf.at[slot],
-                sems.at[slot])
-
-        if sync_dma:
-            # Diagnostic mode (PIET_ENGINE_SYNC_DMA): no cross-block
-            # prefetch pipelining -- each block fetches its own window
-            # synchronously (the expand+gatherm interaction-bug isolator).
-            dma(b % 2, b, 0).start()
-            dma(b % 2, b, 0).wait()
-        else:
-            @pl.when(b == 0)
-            def _():
-                dma(0, 0, 0).start()
-
-            dma(b % 2, b, 0).wait()
-
-            @pl.when(b + 1 < nb)
-            def _():
-                dma((b + 1) % 2, b + 1, 0).start()
-
-        def accum(slot, sub, k):
-            base = lo_ref[b] + sub * WIN
-            sf = (base + jax.lax.broadcasted_iota(
-                jnp.int32, (BLK, WIN), 1)).astype(jnp.float32)
-            # bf16 one-hot x bf16 quarters, f32 accumulation: exact (see
-            # module doc) and a single MXU pass per stream.
-            m = jnp.where(idx_ref[:, k:k + 1] == sf, 1.0, 0.0
-                          ).astype(jnp.bfloat16)
-            return jax.lax.dot_general(
-                m, wbuf[slot], (((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32)
-
-        for k in range(n_streams):
-            outs[k][...] = accum(b % 2, 0, k)
-
-        nsub = nsub_ref[b]
-
-        @pl.when(nsub > 1)
-        def _():
-            def body(sub, _):
-                dma(2, b, sub).start()
-                dma(2, b, sub).wait()
-                for k in range(n_streams):
-                    outs[k][...] += accum(2, sub, k)
-                return 0
-            jax.lax.fori_loop(1, nsub, body, 0)
-
-    return kernel
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def gather_monotone(rows: jax.Array, idxs: tuple, *,
-                    interpret: bool = False) -> tuple:
-    """out_k[p] = rows[idx_k[p]] for K monotone index streams.
-
-    Args:
-      rows: (N, W) source rows; any 32-bit dtype (transported
-        bit-exactly -- see module doc).  4*W <= 128, N < 2^24.
-      idxs: tuple of (P,) int32 arrays, EACH nondecreasing, values in
-        [0, N).  Dead trailing slots must be pinned to a monotone value
-        by the caller (e.g. N - 1); they gather that row harmlessly.
-
-    Returns: tuple of (P, W) arrays of rows.dtype.
-    """
-    N, W = rows.shape
-    K = len(idxs)
-    P = idxs[0].shape[0]
-    assert all(i.shape == (P,) for i in idxs)
-    assert 4 * W <= 128, "at most 32 words per row"
-    assert K <= 128
-    assert N < 2 ** 24 and P < 2 ** 24, "indices must stay exact in f32"
-
-    p_pad = ((P + BLK - 1) // BLK) * BLK
-    n_blocks = p_pad // BLK
-    idx_mat = jnp.stack([i.astype(jnp.float32) for i in idxs], axis=1)
-    idx_mat = jnp.pad(idx_mat, ((0, p_pad - P), (0, 128 - K)),
-                      mode="edge")
-
-    # Per-block windows from the monotone ends (strided slices, no scan).
-    idx_min = jnp.min(idx_mat[:, :K], axis=1).reshape(n_blocks, BLK)
-    idx_max = jnp.max(idx_mat[:, :K], axis=1).reshape(n_blocks, BLK)
-    win_lo = idx_min[:, 0].astype(jnp.int32)
-    win_hi = idx_max[:, -1].astype(jnp.int32)
-    lo = (win_lo // 128) * 128
-
-    n_pad = (N // WIN + 2) * WIN
-    span = win_hi + 1 - lo
-    n_sub = jnp.clip((span + WIN - 1) // WIN, 1, n_pad // WIN)
-    n_sub = jnp.minimum(n_sub, (n_pad - lo) // WIN)
-
-    # 32-bit words -> four exact 8-bit-integer bf16 quarters (interleaved
-    # so out columns (4k .. 4k+3) recombine into word k).
-    u = jax.lax.bitcast_convert_type(rows, jnp.uint32)
-    quarters = jnp.stack([(u >> 24).astype(jnp.bfloat16),
-                          ((u >> 16) & 0xFF).astype(jnp.bfloat16),
-                          ((u >> 8) & 0xFF).astype(jnp.bfloat16),
-                          (u & 0xFF).astype(jnp.bfloat16)], axis=2)
-    rows_p = jnp.pad(quarters.reshape(N, 4 * W),
-                     ((0, n_pad - N), (0, 128 - 4 * W)))
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(n_blocks,),
-        in_specs=[pl.BlockSpec((BLK, 128), lambda b, lo, ns: (b, 0),
-                               memory_space=pltpu.VMEM),
-                  pl.BlockSpec(memory_space=pltpu.HBM)],
-        out_specs=[pl.BlockSpec((BLK, 128), lambda b, lo, ns: (b, 0),
-                                memory_space=pltpu.VMEM)] * K,
-        scratch_shapes=[
-            pltpu.VMEM((3, WIN, 128), jnp.bfloat16),
-            pltpu.SemaphoreType.DMA((3,)),
-        ],
-    )
-    sync = "gatherm" in os.environ.get("PIET_ENGINE_SYNC_DMA", "")
-    outs = pl.pallas_call(
-        _make_kernel(K, sync),
-        grid_spec=grid_spec,
-        out_shape=[jax.ShapeDtypeStruct((p_pad, 128), jnp.float32)] * K,
-        interpret=interpret,
-    )(lo, n_sub, idx_mat, rows_p)
-
-    results = []
-    for out_f in outs:
-        oh = out_f[:P, :4 * W].reshape(P, W, 4)
-        out_u = ((oh[:, :, 0].astype(jnp.uint32) << 24)
-                 | (oh[:, :, 1].astype(jnp.uint32) << 16)
-                 | (oh[:, :, 2].astype(jnp.uint32) << 8)
-                 | oh[:, :, 3].astype(jnp.uint32))
-        results.append(jax.lax.bitcast_convert_type(out_u, rows.dtype))
-    return tuple(results)
 
 
 def gather_monotone_xla(rows: jax.Array, idxs: tuple) -> tuple:
-    """XLA reference implementation (plain gathers): the exactness oracle
-    for gather_monotone and the portable fallback."""
+    """``rows[i]`` for every index array ``i`` in ``idxs``."""
     return tuple(rows[i] for i in idxs)

@@ -1,185 +1,20 @@
-"""Pallas windowed keyed reduction (segment-sum engine).
+"""Keyed reduction (segment sum) of the coarse pass.
 
-The coarse pass's remaining scalar-core hot spots after the expansion
-engine (ops/expand.py) are keyed reductions -- XLA ``segment_sum`` lowers
-to a scatter at ~15 cycles/element:
-
-* per-candidate emitted-command counts (hit records -> candidates),
-* winding-delta accumulation (delta records -> candidates),
-* per-tile entry/command counts (sorted entries -> tiles).
-
-All of them sum SMALL INTEGERS (command counts, +-1 winding deltas), so
-the sum is order-free exact in f32 as long as totals stay < 2^24 --
-which licenses the same MXU trick as the expansion engine: build a
-one-hot key-match matrix for a block of output keys against a window of
-entries (one VPU compare) and reduce with a matmul.  Values ride bf16
-(each element must be an integer with |v| <= 256 -- exact in bf16's
-8-bit mantissa; all three call sites sum values in {-1, 0, 1, 2}), the
-one-hot mask rides bf16, and the MXU accumulates in f32: a SINGLE MXU
-pass with an exact result.
-
-Windowing invariant (the caller's contract): every entry e carries
-monotone bounds ``lo_bound[e] <= keys[e] < hi_bound[e]`` with both bound
-arrays nondecreasing in e.  Then the entries contributing to any key
-block form a contiguous window, precomputed in O(E) XLA.  All three call
-sites satisfy this structurally: hit/delta records are item-major and
-their keys live in the item's candidate range; sorted entries are
-key-(tile-)monotone.
-
-Masking: callers zero the values of dead records -- a matched key with a
-0.0 value contributes exactly 0.0.
+Call sites: per-candidate emitted-command counts (hit records ->
+candidates) and winding-delta accumulation (delta records -> candidates).
+Both sum small integers, so the f32 sums are exact and order-free while
+totals stay below 2^24.
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-#: Output keys per grid block.
-KBLK = 1024
-#: Entry-window lanes per DMA sub-window (128-aligned).
-EWIN = 512
 
 
-def _window_precompute(lo_bound, hi_bound, n_blocks: int, e_pad: int):
-    """Per-key-block contributing-entry windows from monotone bounds."""
-    E = lo_bound.shape[0]
-    ids = jnp.arange(E, dtype=jnp.int32)
-    # Last entry whose lo_bound < (b+1)*KBLK.
-    blk_lo = jnp.clip(lo_bound // KBLK, 0, n_blocks - 1)
-    seed_hi = (jnp.full((n_blocks,), 0, jnp.int32)
-               .at[blk_lo].max(ids, mode="drop"))
-    ent_hi = jax.lax.cummax(seed_hi)
-    # First entry whose hi_bound > b*KBLK: reverse cumulative min over the
-    # last block each entry can touch.
-    blk_hi = jnp.clip((hi_bound - 1) // KBLK, 0, n_blocks - 1)
-    seed_lo = (jnp.full((n_blocks,), E - 1, jnp.int32)
-               .at[blk_hi].min(ids, mode="drop"))
-    ent_lo = jnp.flip(jax.lax.cummin(jnp.flip(seed_lo)))
-    lo = (ent_lo // 128) * 128
-    span = ent_hi + 1 - lo
-    n_sub = jnp.clip((span + EWIN - 1) // EWIN, 1, e_pad // EWIN)
-    n_sub = jnp.minimum(n_sub, (e_pad - lo) // EWIN)
-    return lo, n_sub
-
-
-def _keyed_kernel(lo_ref, nsub_ref, vals_hbm, keys_hbm, out_ref, vbuf,
-                  kbuf, sems):
-    b = pl.program_id(0)
-    nb = pl.num_programs(0)
-    k0 = b * KBLK
-
-    def dma(slot, blk_ix, sub):
-        start = pl.multiple_of(lo_ref[blk_ix] + sub * EWIN, 128)
-        return (pltpu.make_async_copy(
-                    vals_hbm.at[pl.ds(start, EWIN), :],
-                    vbuf.at[slot], sems.at[2 * slot]),
-                pltpu.make_async_copy(
-                    keys_hbm.at[:, pl.ds(start, EWIN)],
-                    kbuf.at[slot], sems.at[2 * slot + 1]))
-
-    def start(slot, blk_ix, sub):
-        for d in dma(slot, blk_ix, sub):
-            d.start()
-
-    def wait(slot, blk_ix, sub):
-        for d in dma(slot, blk_ix, sub):
-            d.wait()
-
-    @pl.when(b == 0)
-    def _():
-        start(0, 0, 0)
-
-    wait(b % 2, b, 0)
-
-    @pl.when(b + 1 < nb)
-    def _():
-        start((b + 1) % 2, b + 1, 0)
-
-    Kf = (k0 + jax.lax.broadcasted_iota(jnp.int32, (KBLK, EWIN), 0)
-          ).astype(jnp.float32)
-
-    def accum(slot):
-        # bf16 one-hot x bf16 small-int values, f32 accumulation: exact
-        # (see module doc) and a single MXU pass.
-        m = jnp.where(kbuf[slot, 0:1, :] == Kf, 1.0, 0.0
-                      ).astype(jnp.bfloat16)
-        return jax.lax.dot_general(
-            m, vbuf[slot], (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32)
-
-    out_ref[...] = accum(b % 2)
-    nsub = nsub_ref[b]
-
-    @pl.when(nsub > 1)
-    def _():
-        def body(sub, _):
-            start(2, b, sub)
-            wait(2, b, sub)
-            out_ref[...] += accum(2)
-            return 0
-        jax.lax.fori_loop(1, nsub, body, 0)
-
-
-@functools.partial(jax.jit, static_argnames=("n_out", "interpret"))
-def keyed_sum(values: jax.Array, keys: jax.Array, lo_bound: jax.Array,
-              hi_bound: jax.Array, n_out: int, *,
-              interpret: bool = False) -> jax.Array:
-    """out[k, v] = sum of values[e, v] over entries with keys[e] == k.
-
-    Args:
-      values: (E, V) f32 integer-valued, every ELEMENT with |v| <= 256
-        (bf16-exact; see module doc) and |sums| < 2^24; zero the rows of
-        dead entries.
-      keys: (E,) int32 in [0, n_out); out-of-range keys contribute
-        nowhere (their one-hot row never matches a block key).
-      lo_bound/hi_bound: (E,) int32 monotone nondecreasing with
-        lo_bound[e] <= keys[e] < hi_bound[e] (window contract above).
-      n_out: static number of output keys.
-
-    Returns: (n_out, V) f32 sums (order-free exact for integer values).
-    """
-    E, V = values.shape
-    assert V <= 128
-    n_pad = ((n_out + KBLK - 1) // KBLK) * KBLK
-    assert n_pad < 2 ** 24 and E < 2 ** 24
-    e_pad = (E // EWIN + 2) * EWIN
-    vals_p = jnp.pad(values.astype(jnp.bfloat16),
-                     ((0, e_pad - E), (0, 128 - V)))
-    keys_p = jnp.pad(keys.astype(jnp.float32).reshape(1, E),
-                     ((0, 7), (0, e_pad - E)),
-                     constant_values=-1.0)
-    lo, n_sub = _window_precompute(lo_bound, hi_bound, n_pad // KBLK, e_pad)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(n_pad // KBLK,),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.HBM),
-                  pl.BlockSpec(memory_space=pltpu.HBM)],
-        out_specs=pl.BlockSpec((KBLK, 128), lambda b, lo, ns: (b, 0),
-                               memory_space=pltpu.VMEM),
-        scratch_shapes=[
-            pltpu.VMEM((3, EWIN, 128), jnp.bfloat16),
-            pltpu.VMEM((3, 8, EWIN), jnp.float32),
-            pltpu.SemaphoreType.DMA((6,)),
-        ],
-    )
-    out = pl.pallas_call(
-        _keyed_kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((n_pad, 128), jnp.float32),
-        interpret=interpret,
-    )(lo, n_sub, vals_p, keys_p)
-    return out[:n_out, :V]
-
-
-def keyed_sum_xla(values: jax.Array, keys: jax.Array, lo_bound, hi_bound,
+def keyed_sum_xla(values: jax.Array, keys: jax.Array,
                   n_out: int) -> jax.Array:
-    """XLA reference (segment_sum): exactness oracle + portable fallback."""
-    del lo_bound, hi_bound
+    """(n_out, V) sums of ``values`` rows by key; keys outside
+    [0, n_out) are dropped."""
     k = jnp.where((keys >= 0) & (keys < n_out), keys, n_out)
     return jax.ops.segment_sum(values, k, num_segments=n_out + 1)[:n_out]

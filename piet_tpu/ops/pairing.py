@@ -19,8 +19,8 @@ and line df is a bitwise-commutative min.  Measured pairable fraction:
 
 Reference context: the reference's PTCL has no such packing -- its
 per-thread interpreter reads commands at ~1 word/cycle and gains nothing
-from merging (PietRender.metal:474-560).  On TPU the interpreter is
-scalar-dispatch-bound, so record density IS throughput.
+from merging (PietRender.metal:474-560); merging pays only where the
+interpreter's per-entry dispatch dominates its per-entry math.
 
 Adjacency rule: entries are stable-sorted by (tile, item, class), so
 same-group records are consecutive and in segment order; runs are paired
@@ -64,8 +64,7 @@ class PairedEntries(NamedTuple):
 def pair_entries(rows: jax.Array, keys: Tuple[jax.Array, ...],
                  live: jax.Array, e_tile: jax.Array, e_ncmds: jax.Array,
                  e_is_opaque: jax.Array, e_is_clear: jax.Array,
-                 n_tiles, expand_impl: str = "xla",
-                 mode: str = "compact") -> PairedEntries:
+                 n_tiles, mode: str = "compact") -> PairedEntries:
     """Merge adjacent pairable entries; compact or hole-out the seconds.
 
     Args:
@@ -75,16 +74,12 @@ def pair_entries(rows: jax.Array, keys: Tuple[jax.Array, ...],
       live/e_tile/e_ncmds/e_is_opaque/e_is_clear: per-entry metadata in
         sorted order (dead entries: live False).
       n_tiles: tile count (dead e_tile sentinel).
-      expand_impl: "pallas"/"pallas_interpret" routes the compaction
-        through the MXU expansion engine (compaction with 0/1 keep
-        counts IS ragged expansion); "xla" keeps the scatter + gather.
       mode: "compact" removes merged seconds from the stream (a scatter +
-        record-sized gather -- scalar-core work, measured ~3.5 ms at 4K
-        tiger on the XLA path); "hole" zeroes them IN PLACE: an all-zero
-        entry matches no class in the fine kernel's predicated dispatch,
-        so a hole costs only the per-entry dispatch floor (~2 SMEM tag
-        reads + compares) instead of full class work, and the coarse
-        side pays two vector selects instead of the compaction.
+        record-sized gather); "hole" zeroes them IN PLACE: an all-zero
+        entry matches no class in the fine kernel's dispatch, so a hole
+        costs only the per-entry dispatch (two tag reads + compares)
+        instead of full class work, and the coarse side pays two vector
+        selects instead of the compaction.
 
     Returns PairedEntries (same capacity E; under "compact" the live
     prefix shrinks by the number of merged pairs, under "hole" it does
@@ -164,36 +159,14 @@ def pair_entries(rows: jax.Array, keys: Tuple[jax.Array, ...],
     total = keep.sum().astype(jnp.int32)
     new_live = idx < total
     mncmds = e_ncmds + has_partner.astype(jnp.int32)
-    from .coarse import engine_set
-    engines, eng_interp = engine_set(expand_impl)
-    if "expand" in engines:
-        # Compaction IS ragged expansion with 0/1 counts: out[j] = the
-        # j-th kept row.  One MXU engine pass replaces the position
-        # scatter plus the (E, 20)-row gather (both scalar-core in XLA).
-        from .expand import expand_rows
-        bundle = jnp.concatenate(
-            [merged, e_tile.astype(f32)[:, None],
-             mncmds.astype(f32)[:, None],
-             e_is_opaque.astype(f32)[:, None],
-             e_is_clear.astype(f32)[:, None]], axis=1)
-        out = expand_rows(bundle, keep.astype(jnp.int32), E,
-                          interpret=eng_interp)
-        w = rows.shape[1]
-        out_rows = jnp.where(new_live[:, None], out[:, :w], 0.0)
-        out_tile = jnp.where(new_live, out[:, w].astype(jnp.int32),
-                             n_tiles)
-        out_ncmds = jnp.where(new_live, out[:, w + 1].astype(jnp.int32), 0)
-        out_opq = new_live & (out[:, w + 2] != 0.0)
-        out_clr = new_live & (out[:, w + 3] != 0.0)
-    else:
-        pos = jnp.cumsum(keep.astype(jnp.int32)) - keep.astype(jnp.int32)
-        pos_idx = (jnp.zeros((E,), jnp.int32)
-                   .at[jnp.where(keep, pos, E)].set(idx, mode="drop"))
-        out_rows = jnp.where(new_live[:, None], merged[pos_idx], 0.0)
-        out_tile = jnp.where(new_live, e_tile[pos_idx], n_tiles)
-        out_ncmds = jnp.where(new_live, mncmds[pos_idx], 0)
-        out_opq = new_live & e_is_opaque[pos_idx]
-        out_clr = new_live & e_is_clear[pos_idx]
+    pos = jnp.cumsum(keep.astype(jnp.int32)) - keep.astype(jnp.int32)
+    pos_idx = (jnp.zeros((E,), jnp.int32)
+               .at[jnp.where(keep, pos, E)].set(idx, mode="drop"))
+    out_rows = jnp.where(new_live[:, None], merged[pos_idx], 0.0)
+    out_tile = jnp.where(new_live, e_tile[pos_idx], n_tiles)
+    out_ncmds = jnp.where(new_live, mncmds[pos_idx], 0)
+    out_opq = new_live & e_is_opaque[pos_idx]
+    out_clr = new_live & e_is_clear[pos_idx]
     return PairedEntries(rows=out_rows, live=new_live, e_tile=out_tile,
                          e_ncmds=out_ncmds, e_is_opaque=out_opq,
                          e_is_clear=out_clr)

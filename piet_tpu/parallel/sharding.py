@@ -1,7 +1,7 @@
 """Multi-chip rendering: row-sharded SPMD over a jax.sharding.Mesh.
 
 The reference is strictly single-GPU (SURVEY.md section 2, "parallelism
-strategy inventory"); this module is the TPU-native scale-out design:
+strategy inventory"); this module is the scale-out design:
 
 * the tile grid is sharded by TILE ROWS over a 1D mesh axis -- each device
   runs the full coarse+fine+present pipeline (renderer/renderer.py::
@@ -13,7 +13,7 @@ strategy inventory"); this module is the TPU-native scale-out design:
   backdrops and blending are all row-local (the left-ray backdrop runs
   along x, PietRender.metal:331-333, so rows never couple).  The only
   collective is the implicit all-gather if the caller assembles the full
-  framebuffer on one host -- over ICI, at most H*W*4 bytes;
+  framebuffer on one host -- at most H*W*4 bytes;
 * capacity limits (max_hits etc. in RenderConfig) apply PER DEVICE, so a
   mesh of N devices also scales the record budget by N.
 
@@ -39,7 +39,8 @@ from ..renderer.renderer import (Renderer, _resolve_fine_impl, prepare_scene,
 
 
 def make_sharded_render_fn(config: RenderConfig, mesh: Mesh,
-                           fine_impl: str = "auto", interleave: int = 1):
+                           fine_impl: str = "auto", interleave: int = 1,
+                           interpret: bool = False):
     """Build the jitted multi-chip render step.
 
     Returns a function DeviceScene -> (image_u32, stats).  With
@@ -84,7 +85,8 @@ def make_sharded_render_fn(config: RenderConfig, mesh: Mesh,
 
             def one(b):
                 img, stats = render_slab(scene, config, tiles_y=k,
-                                         row0=b * k, fine_impl=impl)
+                                         row0=b * k, fine_impl=impl,
+                                         interpret=interpret)
                 return img, {kk: jnp.asarray(v) for kk, v in stats.items()}
 
             imgs, stats = jax.lax.map(one, block_ids)
@@ -104,7 +106,7 @@ def make_sharded_render_fn(config: RenderConfig, mesh: Mesh,
         scene = scene._replace(seg_pre=None)  # shard-local (see above)
         row0 = jax.lax.axis_index(axis) * rows
         img, stats = render_slab(scene, config, tiles_y=rows, row0=row0,
-                                 fine_impl=impl)
+                                 fine_impl=impl, interpret=interpret)
         # Scalars -> (1,) so the stacked per-device stats shard over `axis`.
         stats = {k: jnp.asarray(v).reshape(1) for k, v in stats.items()}
         return img, stats
@@ -131,12 +133,13 @@ class ShardedRenderer:
     """
 
     def __init__(self, config: RenderConfig, mesh: Mesh,
-                 fine_impl: str = "auto", interleave: int = 1):
+                 fine_impl: str = "auto", interleave: int = 1,
+                 interpret: bool = False):
         self.config = config
         self.mesh = mesh
         self.interleave = interleave
         self._render = make_sharded_render_fn(config, mesh, fine_impl,
-                                              interleave)
+                                              interleave, interpret)
         self._scene_sharding = NamedSharding(mesh, P())
         self.last_stats: Optional[Dict] = None
 

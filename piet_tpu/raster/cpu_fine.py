@@ -13,9 +13,8 @@ block in float32 numpy:
 Precision policy (applies identically to the Pallas kernel, ops/fine.py):
 float32 throughout.  The reference mixes f32 positions with f16 color and
 coverage accumulators (``half signedArea``, PietRender.metal:472, with an
-acknowledged accuracy TODO at :525); TPU has no f16 and bf16 would band
-visibly, so piet-tpu runs the whole pipeline in f32 -- a strict quality
-improvement, encoded once here so the oracle and the device kernel agree
+acknowledged accuracy TODO at :525); piet-tpu runs the whole pipeline in
+f32 -- a strict quality improvement, encoded once here so the oracle and the device kernel agree
 bit-for-bit.
 """
 

@@ -22,7 +22,7 @@ per-tile tests verbatim:
 All arithmetic is float32 (Metal ``float``), and the identical formulas are
 implemented by the XLA coarse pass (ops/coarse.py), so PTCL equivalence is
 testable command-for-command.  Tile size is parametric (the reference
-hard-codes 16x16; our TPU default is 16x128 -- see config.py).
+hard-codes 16x16; our default is 32x128 -- see config.py).
 """
 
 from __future__ import annotations

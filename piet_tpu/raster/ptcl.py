@@ -1,9 +1,10 @@
 """PTCL: per-tile command lists, as fixed-shape arrays.
 
 The reference streams variable-length 24-byte commands into a 4096-byte
-byte buffer per tile (TileEncoder, PietRender.metal:69-157).  The TPU-native
-representation is capacity-padded dense arrays -- directly consumable by a
-Pallas kernel with one tile per grid step:
+byte buffer per tile (TileEncoder, PietRender.metal:69-157).  Here the
+representation is capacity-padded dense arrays (the oracle's format and
+the portable XLA path's; the GPU path reads the entry stream instead,
+layout/entry_stream.py):
 
   tags   (T, CAP)    int32   command tag per slot (reference tag values)
   args   (T, CAP, 8) float32 command operands (layouts below)

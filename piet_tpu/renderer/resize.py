@@ -7,7 +7,7 @@ the new drawable (TestApp/PietRenderer.m:105-146), with one static maximum
 a naive per-viewport ``Renderer`` pays a full recompile (~minutes at 4K)
 for each new window size.
 
-``ResizableRenderer`` is the TPU-native equivalent of the reference's
+``ResizableRenderer`` is the equivalent of the reference's
 max-tiles contract: compile ONCE for the maximum tile grid, then render
 any viewport that fits it with zero recompiles.
 

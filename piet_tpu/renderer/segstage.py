@@ -14,7 +14,7 @@ and the device agree on by construction (ops/cmd_math.py) -- so the
 device pipeline consumes it with no semantic change
 (tests/test_segstage.py pins the equality).
 
-This is the TPU analog of the reference's encode-once design: the scene
+This is the analog of the reference's encode-once design: the scene
 is encoded at init/resize and frames are GPU-only re-renders
 (TestApp/PietRenderer.m:59-103,105-146); derived per-segment data is
 part of that encoding.  Device-side animation paths (scene/animate.py,

@@ -1,6 +1,6 @@
 """Device-side affine animation for ARBITRARY scenes (round 5).
 
-VERDICT r4 item 6: ``scene/animate.py`` answers the reference's
+``scene/animate.py`` answers the reference's
 static-scene 60 Hz loop for the animated FIXTURE (its geometry is a
 closed-form function of ``t``), but the reference's scene model is
 arbitrary -- any encoded scene can be re-encoded under a new transform
@@ -39,7 +39,7 @@ Stroke widths are left untouched (device-space widths, the piet stroke
 model); scale-aware widths can ride a per-item width multiplier staged
 by the caller.
 
-Determinism: the transform is mul/add only (exactly rounded on TPU), so
+Determinism: the transform is mul/add only (exactly rounded), so
 a frame is a pure deterministic function of (scene, mats); exactness of
 the RENDER of a transformed frame is pinned by pulling the
 device-computed arrays and rendering them through the numpy oracle
@@ -270,7 +270,7 @@ def make_affine_render_fn(config, scene, mats_fn: Callable,
     ``mats_fn(t)`` (returning (NI, 6) or (6,) affines) -- geometry
     transform, coarse, fine, and present all in ONE device dispatch.
 
-    The TPU answer to the reference's re-encode-then-render loop
+    The answer to the reference's re-encode-then-render loop
     (PietRenderer.m:105-146): the scene is staged once; a frame costs
     one dispatch with one f32 argument.
     """

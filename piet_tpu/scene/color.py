@@ -112,17 +112,12 @@ def linear_to_srgb_det(v: np.ndarray) -> np.ndarray:
     evaluated as ``2^(log2(x)/2.4)`` with the exponent/mantissa split done
     by BIT operations and both transcendentals by fixed-order Horner
     polynomials -- the chain uses ONLY multiply, add, floor, compare and
-    bitcast.  f32 multiply/add are correctly rounded on every backend we
-    target (numpy/x86, XLA:CPU with contraction barriers, and the TPU VPU
-    -- pinned by tools/mosaic_numerics_probe.py), and floor/bitcast are
-    exact, so numpy, the Pallas fine kernel and the C++ golden rasterizer
-    are bit-identical BY CONSTRUCTION.
-
-    The previous sqrt+Newton chain relied on device div/sqrt being
-    IEEE-correctly rounded -- measured FALSE on TPU (round 4: both are
-    <= 2 ulp off on ~34% of inputs; deterministic and shape-independent,
-    but not equal to numpy), which flipped the u8 rounding of isolated
-    boundary pixels (the round-3 32-row and gradient-demo divergences).
+    bitcast.  f32 multiply/add are correctly rounded on every backend
+    (given contraction barriers where a compiler may fuse them), and
+    floor/bitcast are exact, so numpy, the Pallas fine kernel and the C++
+    golden rasterizer are bit-identical BY CONSTRUCTION.  A device sqrt
+    or division need not be correctly rounded, which is why neither
+    appears in the chain.
 
     Any change here must be mirrored in ops/cmd_math.py::srgb_encode_u32
     and the generated piet_srgb::encode (layout/emit_cpp.py).
@@ -160,8 +155,8 @@ def decode_color_linear(color) -> np.ndarray:
 
     RGB channels are sRGB-decoded; alpha stays linear ([0,1]).  This is the
     per-command decode the fine rasterizer applies
-    (PietRender.metal:503,541,548) -- hoisted to encode/bin time in the TPU
-    design since the result is command-constant.
+    (PietRender.metal:503,541,548) -- hoisted to encode/bin time here
+    since the result is command-constant.
     """
     r, g, b, a = unpack_rgba(color)
     rgb = _SRGB_DECODE_TABLE[np.stack([r, g, b], axis=-1)]

@@ -1,9 +1,9 @@
 """Fixture and benchmark scenes.
 
 The reference keeps three switchable fixtures of increasing complexity
-(src/lib.rs:256-284,369-373); we keep those plus the driver BASELINE.json
-benchmark configs (1k circles + rounded-rect strokes, 10k random cubic
-Beziers, glyph page, animated scenes).
+(src/lib.rs:256-284,369-373); we keep those plus the benchmark scenes
+(1k circles + rounded-rect strokes, 10k random cubic Beziers, glyph page,
+animated scenes; BENCH_SCENES below).
 """
 
 from __future__ import annotations
@@ -376,3 +376,22 @@ def get_scene(name: str, **kwargs) -> Scene:
     if name == "animated":
         return make_animated_frame(kwargs.pop("t", 0.0), **kwargs)
     return SCENES[name](**kwargs)
+
+
+def _tiger(scale):
+    def make():
+        from .svg import make_tiger
+        return make_tiger(scale=scale)
+    return make
+
+
+#: The benchmark scenes: name -> (scene factory, width, height).  The
+#: headline is the Ghostscript Tiger at 19.2x in 3840x2160.
+BENCH_SCENES = {
+    "tiger_4k": (_tiger(19.2), 3840, 2160),
+    "tiger_8x": (_tiger(8.0), 1664, 1664),
+    "circles_rects_1k": (lambda: get_scene("circles_rects"), 1024, 1024),
+    "beziers_10k": (lambda: get_scene("beziers_10k"), 1024, 1024),
+    "glyph_page_5k": (lambda: get_scene("glyph_page"), 1024, 1024),
+    "animated_clips": (lambda: get_scene("animated"), 1024, 1024),
+}

@@ -1,6 +1,6 @@
 """Struct-of-arrays scene representation and builder.
 
-This is the TPU-native replacement for the reference's flat byte buffer +
+This is the replacement for the reference's flat byte buffer +
 bump-allocating ``Encoder`` (reference: src/lib.rs:79-254).  Same item
 semantics and the same public surface (begin_group / circle / stroke_line /
 fill / polyline / end_group), but the storage is typed packed arrays directly

@@ -168,7 +168,7 @@ def encode_scene(scene: Scene) -> bytes:
 
 def hexdump_scene(buf: bytes) -> str:
     """Wire-format debugging aid: hexdump the encoded buffer as u32 words,
-    the TPU port of the reference's ``Encoder::debug_print``
+    the port of the reference's ``Encoder::debug_print``
     (src/lib.rs:242-253) -- plus region annotations the reference lacked
     (header / bbox array / item array / point data), derived from the
     self-describing header.

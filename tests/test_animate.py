@@ -98,8 +98,8 @@ def test_device_frame_renders_bit_exact_vs_oracle():
                   )(jnp.float32(0.7))
     gold = cpu_render_scene(_fetch_scene(dev, tmpl), cfg)
     # CPU backend carries the documented FMA-contraction tolerance
-    # (tests/test_fine.py); bit-exactness on chip is pinned by
-    # test_tpu_exact.py.
+    # (tests/_imgcmp.py); bit-exactness on the card is pinned by
+    # test_gpu_exact.py.
     diff = np.abs(img.astype(int) - gold.astype(int))
     bad = (diff > 2).sum()
     assert bad == 0, f"{bad} channel values differ by > 2 codes"

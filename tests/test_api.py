@@ -142,6 +142,6 @@ def test_device_matches_oracle_end_to_end():
     gold = cpu_render_scene(scene, CFG)
     img = Renderer(CFG, fine_impl="xla").render(scene)
     # XLA:CPU carries the documented FMA-contraction tolerance
-    # (tests/test_fine.py); hardware is bit-exact (test_tpu_exact.py).
+    # (tests/_imgcmp.py); the GPU is bit-exact (test_gpu_exact.py).
     diff = np.abs(img.astype(int) - gold.astype(int))
     assert diff.max() <= 2 and (diff.max(axis=-1) > 0).mean() < 1e-3

@@ -75,7 +75,7 @@ CASES = [
           cmd_capacity=768, max_items=512, max_points=1 << 15,
           max_segments=1 << 15, max_hits=1 << 17, max_candidates=1 << 15,
           max_deltas=1 << 15)),
-    # TPU-native tile geometry (16x128 = two f32 vregs per state array).
+    # Wide tiles (16x128).
     ("tiger_1x_tpu_tiles", lambda: make_tiger(scale=1.0),
      dict(width=224, height=224, tile_height=16, tile_width=128,
           cmd_capacity=2688, max_items=512, max_points=1 << 15,
@@ -117,36 +117,3 @@ def test_sort_fallback_unpacked_keys():
     out = run_coarse(scene, cfg)
     gold = cpu_tile_scene(scene, cfg)
     assert_ptcl_equal(out, gold, cfg)
-
-
-@pytest.mark.parametrize("impl", ["pallas_interpret",
-                                  "pallas_interpret:gatherm"])
-def test_engine_path_bit_identical_entries(impl):
-    """Every SUPPORTED Pallas engine set (interpret mode) must produce a
-    bit-identical entry stream to the XLA path -- "pallas" (expansion +
-    keyed sums, incl. pairing compaction) plus gatherm alone (segment
-    endpoints via the monotone i0/i0+1 streams + carried wrap-around
-    first point, and the backdrop row-start base).  The expand+gatherm
-    COMBINATION is rejected by engine_set (round-4 hardware finding; see
-    ops/coarse.py::ENGINES_DEFAULT)."""
-    cfg = RenderConfig(width=224, height=224, tile_height=16,
-                       tile_width=128, cmd_capacity=2688, max_items=512,
-                       max_points=1 << 15, max_segments=1 << 15,
-                       max_hits=1 << 17, max_candidates=1 << 14,
-                       max_deltas=1 << 15)
-    scene = make_tiger(scale=1.0)
-    dev = prepare_scene(scene, cfg)
-    kw = dict(tiles_x=cfg.tiles_x, tiles_y=cfg.tiles_y,
-              tile_w=cfg.tile_width, tile_h=cfg.tile_height,
-              cmd_capacity=cfg.cmd_capacity, max_segments=cfg.max_segments,
-              max_hits=cfg.max_hits, max_candidates=cfg.max_candidates,
-              max_deltas=cfg.max_deltas, output="entries")
-    ref = coarse_rasterize(dev, expand_impl="xla", **kw)
-    eng = coarse_rasterize(dev, expand_impl=impl, **kw)
-    for name in ("stream", "first", "n_entries", "counts", "solid"):
-        a = np.asarray(getattr(ref, name))
-        b = np.asarray(getattr(eng, name))
-        np.testing.assert_array_equal(
-            a.view(np.uint32) if a.dtype.kind == "f" else a,
-            b.view(np.uint32) if b.dtype.kind == "f" else b,
-            err_msg=name)

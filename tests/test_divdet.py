@@ -2,7 +2,7 @@
 
 The division-free fine math (ops/cmd_math.py module doc) rests on two
 properties, pinned here on CPU (the on-chip twin rides the exactness
-suite, tests/test_tpu_exact.py, whose strict image equality consumes
+suite, tests/test_gpu_exact.py, whose strict image equality consumes
 these constants end to end):
 
 1. div_det equals IEEE division wherever the seed is exact (XLA:CPU

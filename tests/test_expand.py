@@ -1,9 +1,8 @@
-"""expand_rows: the Pallas ragged-expansion + row-gather engine.
+"""expand_rows_xla: ragged expansion + row gather vs a numpy model.
 
 Bit-exactness contract: for ANY 32-bit payload (f32 including -0.0, Inf,
-NaN bit patterns, or bitcast int32), expand_rows must equal the XLA
-scatter+cummax+gather reference word-for-word.  On CPU the kernel runs in
-interpreter mode; tests/test_tpu_exact.py re-pins exactness on hardware.
+NaN bit patterns, or bitcast int32), the expansion must equal the numpy
+``np.repeat`` model word-for-word, with all-zero rows past the total.
 """
 
 import numpy as np
@@ -12,16 +11,22 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from piet_tpu.ops.expand import expand_rows, expand_rows_xla
+from piet_tpu.ops.expand import expand_rows_xla
 
 jax.config.update("jax_enable_x64", False)
 
 
+def _expand_np(rows, counts, cap):
+    out = np.zeros((cap,) + rows.shape[1:], rows.dtype)
+    src = np.repeat(np.arange(len(counts)), counts)[:cap]
+    out[:len(src)] = rows[src]
+    return out
+
+
 def _check(rows, counts, cap):
-    got = np.asarray(expand_rows(jnp.asarray(rows), jnp.asarray(counts),
-                                 cap, interpret=True))
-    want = np.asarray(expand_rows_xla(jnp.asarray(rows),
-                                      jnp.asarray(counts), cap))
+    got = np.asarray(expand_rows_xla(jnp.asarray(rows), jnp.asarray(counts),
+                                     cap))
+    want = _expand_np(rows, counts, cap)
     np.testing.assert_array_equal(
         got.view(np.uint32), want.view(np.uint32))
 
@@ -51,16 +56,13 @@ def test_int32_payload():
     rows = rng.integers(-2**31, 2**31 - 1, (64, 3), dtype=np.int64
                         ).astype(np.int32)
     counts = rng.integers(0, 9, 64).astype(np.int32)
-    got = np.asarray(expand_rows(jnp.asarray(rows), jnp.asarray(counts),
-                                 1024, interpret=True))
-    want = np.asarray(expand_rows_xla(jnp.asarray(rows),
-                                      jnp.asarray(counts), 1024))
-    np.testing.assert_array_equal(got, want)
+    got = np.asarray(expand_rows_xla(jnp.asarray(rows), jnp.asarray(counts),
+                                     1024))
+    np.testing.assert_array_equal(got, _expand_np(rows, counts, 1024))
 
 
 def test_zero_count_runs_and_multiblock():
-    """Long zero-count runs force multi-sub-window blocks; sources
-    crossing block boundaries must land in both blocks."""
+    """Long zero-count runs and a source spanning most of the output."""
     rng = np.random.default_rng(2)
     S = 1500
     counts = np.zeros(S, np.int32)
@@ -100,8 +102,8 @@ def test_fuzz_random(seed):
 
 def test_xla_owner_lookup_both_directions():
     """expand_rows_xla picks its owner-lookup formulation by direction
-    (search when S > cap, scatter+cummax otherwise; round 4) -- pin both
-    against an independent numpy expansion."""
+    (search when S > cap, scatter+cummax otherwise) -- pin both against an
+    independent numpy expansion."""
     rng = np.random.default_rng(3)
     for S, cap in ((300, 64), (64, 300)):
         counts = rng.integers(0, 4, S).astype(np.int32)

@@ -4,22 +4,23 @@ Both device implementations of the reference renderKernel
 (TestApp/PietRender.metal:457-566) are checked against the numpy oracle
 (piet_tpu/raster/cpu_fine.py):
 
-* the pure-XLA path (ops/fine_xla.py) and the Pallas kernel in
-  interpreter mode both execute through XLA:CPU, whose LLVM backend
-  contracts mul+add chains into FMAs at its own discretion (neither
-  ``optimization_barrier`` nor bitcast chains survive to block it), so
-  ~1e-5 of pixels land one u8 code off the oracle; the tolerance below
-  documents exactly that.
-* on real TPU hardware Mosaic/XLA:TPU do NOT contract and f32 div/sqrt
-  are IEEE-exact, so both device paths are bit-identical to the oracle --
-  asserted by tests/test_tpu_exact.py when a TPU is attached.
+* the pure-XLA path (ops/fine_xla.py) over the oracle's own dense PTCL,
+* the Pallas GPU kernel (ops/fine.py) in interpret mode over the device
+  coarse pass's entry stream of the same frame.
+
+Both execute through XLA:CPU, whose LLVM backend contracts mul+add chains
+into FMAs at its own discretion, so a tiny fraction of pixels land one u8
+code off the oracle; the tolerance below documents exactly that.  On the
+GPU both are bit-identical to the oracle (tests/test_gpu_exact.py).
 """
 
+import jax
 import numpy as np
 import pytest
 
 from piet_tpu.config import RenderConfig
-from piet_tpu.ops.fine import fine_rasterize
+from piet_tpu.ops.coarse import coarse_rasterize
+from piet_tpu.ops.fine import fine_rasterize_entries
 from piet_tpu.ops.fine_xla import fine_rasterize_xla
 from piet_tpu.raster.cpu_fine import cpu_render_ptcl
 from piet_tpu.raster.cpu_tiler import cpu_tile_scene
@@ -53,10 +54,21 @@ def _render_and_mask(cfg, make, impl):
             counts2d, ptcl.tags, flat_args, tile_h=cfg.tile_height,
             tile_w=cfg.tile_width, cmd_capacity=cfg.cmd_capacity)
     else:
-        img_u32 = fine_rasterize(
-            counts2d, ptcl.tags, flat_args, tile_h=cfg.tile_height,
-            tile_w=cfg.tile_width, cmd_capacity=cfg.cmd_capacity,
-            interpret=True)
+        from piet_tpu.renderer.capacity import fit_capacities
+        from piet_tpu.renderer.renderer import (_solid_to_present_u32,
+                                                prepare_scene)
+        fit = fit_capacities(scene, cfg)
+        ce = jax.jit(lambda d: coarse_rasterize(
+            d, tiles_x=fit.tiles_x, tiles_y=fit.tiles_y,
+            tile_w=fit.tile_width, tile_h=fit.tile_height,
+            cmd_capacity=fit.cmd_capacity, max_segments=fit.max_segments,
+            max_hits=fit.max_hits, max_candidates=fit.max_candidates,
+            max_deltas=fit.max_deltas, output="entries"))(
+                prepare_scene(scene, fit))
+        img_u32 = fine_rasterize_entries(
+            ce.first, ce.n_entries, _solid_to_present_u32(ce.solid),
+            ce.stream, tile_h=cfg.tile_height, tile_w=cfg.tile_width,
+            tiles_x=cfg.tiles_x, interpret=True)
     img = (np.ascontiguousarray(np.asarray(img_u32)).view(np.uint8)
            .reshape(cfg.padded_height, cfg.padded_width, 4))
     img = img[:cfg.height, :cfg.width]
@@ -74,10 +86,8 @@ def _assert_near_exact(img, gold, bail):
     # can compound), on a small fraction of pixels.  The fraction bound is
     # loose at wide tiles: LLVM contraction on a per-ROW intermediate
     # (fill w0/wa/rsy chains depend only on Y) perturbs a whole 128-pixel
-    # row at once.  The shared math itself is verified bitwise against
-    # the numpy mirror when jitted stand-alone (no fusion context), and
-    # on TPU hardware, where Mosaic never contracts, the image tests are
-    # strict equality (tests/test_tpu_exact.py).
+    # row at once.  On the GPU the image tests are strict equality
+    # (tests/test_gpu_exact.py).
     assert diff.max() <= 2, f"maxdiff {diff.max()}"
     frac = (diff.max(-1) > 0).mean()
     assert frac < 1e-3, f"{frac:.2%} pixels differ (FMA tolerance)"
@@ -87,8 +97,6 @@ def _assert_near_exact(img, gold, bail):
 @pytest.mark.parametrize("name,make,cfg_kw", CASES,
                          ids=[c[0] for c in CASES])
 def test_fine_near_exact_on_cpu(name, make, cfg_kw, impl):
-    if impl == "pallas" and cfg_kw["cmd_capacity"] > 1024:
-        pytest.skip("interpreter too slow at large capacity")
     cfg = RenderConfig(**cfg_kw)
     img, gold, bail = _render_and_mask(cfg, make, impl)
     _assert_near_exact(img, gold, bail)

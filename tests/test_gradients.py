@@ -111,7 +111,7 @@ def test_render_matches_oracle_xla():
     gold = cpu_render_scene(scene, cfg)
     img = Renderer(cfg, fine_impl="xla").render(scene)
     # Bit-exact up to XLA:CPU's FMA contraction (tests/_imgcmp.py);
-    # strict on chip (tests/test_tpu_exact.py::test_gradient_scene...).
+    # strict on the card (tests/test_gpu_exact.py::test_gradient_scene).
     from tests._imgcmp import assert_images_match
     assert_images_match(img, gold)
 

@@ -106,7 +106,7 @@ def test_group_nesting_validation():
 
 def test_clip_scene_pallas_interpret_matches_oracle():
     """The production entry-stream kernel's group stacks (interpret mode;
-    the hardware variant lives in test_tpu_exact.py)."""
+    the on-card variant lives in test_gpu_exact.py)."""
     img = Renderer(CFG, fine_impl="pallas", interpret=True).render(
         _clip_scene())
     gold = cpu_render_scene(_clip_scene(), CFG)

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 
 from piet_tpu.config import RenderConfig
-from piet_tpu.layout.entry_stream import (ENTRY_WORDS, W_S0_ARG, W_S0_TAG,
+from piet_tpu.layout.entry_stream import (W_S0_ARG, W_S0_TAG,
                                           W_S1_ARG, W_S1_TAG)
 from piet_tpu.ops.coarse import coarse_rasterize
 from piet_tpu.raster.cpu_fine import cpu_render_scene
@@ -31,7 +31,7 @@ def run_entries(scene, cfg: RenderConfig, pair: bool):
         tile_w=cfg.tile_width, tile_h=cfg.tile_height,
         cmd_capacity=cfg.cmd_capacity, max_segments=cfg.max_segments,
         max_hits=cfg.max_hits, max_candidates=cfg.max_candidates,
-        max_deltas=cfg.max_deltas, output="entries", sort_impl="xla",
+        max_deltas=cfg.max_deltas, output="entries",
         pair=pair)
 
 
@@ -43,8 +43,7 @@ def decode_stream(out):
     reads, see cmd_math.line_field_sq).  Every other tag compares on the
     full slot-0 payload including the clip-rect words.
     """
-    stream = np.asarray(out.stream)
-    rows = stream.transpose(0, 2, 1).reshape(-1, ENTRY_WORDS)
+    rows = np.asarray(out.stream)
     first = np.asarray(out.first)
     n_entries = np.asarray(out.n_entries)
     tiles = []
@@ -128,8 +127,7 @@ def test_pairing_preserves_command_sequence(name, make, cfg_kw, mode):
 
 def _count_nonempty(out):
     """Non-zero entry rows inside live tile ranges."""
-    stream = np.asarray(out.stream)
-    rows = stream.transpose(0, 2, 1).reshape(-1, ENTRY_WORDS)
+    rows = np.asarray(out.stream)
     first = np.asarray(out.first)
     n_entries = np.asarray(out.n_entries)
     total = 0
@@ -145,7 +143,7 @@ def test_pairing_fuzz_command_sequence(seed):
     seeds 200+): paired and unpaired streams decode to identical
     per-tile command sequences.  One shared config keeps this to two
     XLA compiles for the whole sweep."""
-    from test_fuzz import SHARED_CFG, random_scene
+    from tests.test_fuzz import SHARED_CFG, random_scene
 
     scene = random_scene(seed, groups=seed >= 200)
     plain = run_entries(scene, SHARED_CFG, pair=False)

@@ -37,7 +37,7 @@ def test_probes_cover_stage_order():
         tile_w=cfg.tile_width, tile_h=cfg.tile_height,
         cmd_capacity=cfg.cmd_capacity, max_segments=cfg.max_segments,
         max_hits=cfg.max_hits, max_candidates=cfg.max_candidates,
-        max_deltas=cfg.max_deltas, output="entries", sort_impl="xla",
+        max_deltas=cfg.max_deltas, output="entries",
         with_probes=True)
     probes = out.diag["probes"]
     missing = [n for n in STAGE_ORDER if n not in probes]
@@ -56,7 +56,7 @@ def test_probes_off_by_default():
         tile_w=cfg.tile_width, tile_h=cfg.tile_height,
         cmd_capacity=cfg.cmd_capacity, max_segments=cfg.max_segments,
         max_hits=cfg.max_hits, max_candidates=cfg.max_candidates,
-        max_deltas=cfg.max_deltas, output="entries", sort_impl="xla")
+        max_deltas=cfg.max_deltas, output="entries")
     assert "probes" not in out.diag
 
 

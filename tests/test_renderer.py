@@ -48,8 +48,8 @@ def test_render_matches_golden(name, make, cfg):
     img = r.render(scene)
     gold = cpu_render_scene(scene, cfg)
     # Bit-exact up to XLA:CPU's discretionary FMA contraction (see
-    # tests/_imgcmp.py); on TPU the full pipeline is bit-exact
-    # (tests/test_tpu_exact.py).
+    # tests/_imgcmp.py); on the GPU the full pipeline is bit-exact
+    # (tests/test_gpu_exact.py).
     from tests._imgcmp import assert_images_match
     assert_images_match(img, gold)
 
@@ -77,8 +77,8 @@ def test_hit_capacity_error():
 
 
 def test_render_entries_path_interpret():
-    """The TPU production path (entry-stream coarse + Pallas entries
-    kernel) through the interpreter, within the XLA:CPU FMA tolerance."""
+    """The GPU path (entry-stream coarse + the Pallas kernel) through the
+    interpreter, within the XLA:CPU FMA tolerance."""
     name, make, cfg = CASES[0]
     scene = make()
     r = Renderer(cfg, fine_impl="pallas", interpret=True)

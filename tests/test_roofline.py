@@ -1,4 +1,4 @@
-"""Roofline model (piet_tpu/roofline.py) + round-4 renderer knobs."""
+"""Roofline model (piet_tpu/roofline.py) + partial restaging."""
 
 import numpy as np
 import pytest
@@ -6,7 +6,10 @@ import pytest
 jax = pytest.importorskip("jax")
 
 from piet_tpu.config import RenderConfig
-from piet_tpu.roofline import coarse_model, fine_model, frame_roofline
+from piet_tpu.roofline import (PEAKS, coarse_model, fine_model,
+                               frame_roofline, peaks)
+
+H100 = "NVIDIA H100 80GB HBM3"
 
 
 def _cfg(**kw):
@@ -20,20 +23,22 @@ def test_fine_model_scales_with_entries():
     kw = dict(tile_h=32, tile_w=128, n_tiles=256)
     small = fine_model({"live_entries": 1000, "bail_tiles": 0}, **kw)
     big = fine_model({"live_entries": 100000, "bail_tiles": 0}, **kw)
-    assert big["ms_floor"] > small["ms_floor"] > 0
-    assert big["vpu_ops"] == pytest.approx(
-        small["vpu_ops"] + 99000 * 32 * 128 * 35.0)
+    assert big["ops"] == pytest.approx(
+        small["ops"] + 99000 * 32 * 128 * 35.0)
+    assert big["bytes_moved"] > small["bytes_moved"]
 
 
 def test_frame_roofline_shape():
     cfg = _cfg()
     stats = {"live_entries": 50000, "bail_tiles": 10, "n_hits": 40000,
              "n_candidates": 5000, "n_deltas": 1000, "n_segments": 30000}
-    r = frame_roofline(stats, cfg, coarse_ms=2.0, fine_ms=3.0, total_ms=5.0)
+    r = frame_roofline(stats, cfg, coarse_ms=2.0, fine_ms=3.0, total_ms=5.0,
+                       device_kind=H100)
     for stage in ("fine", "coarse", "frame"):
         d = r[stage]
-        assert d["ms_floor"] > 0
-        assert 0 < d["pct_of_roofline"] <= 100 or d["pct_of_roofline"] > 0
+        assert d["ms_floor"] == max(d["ms_mem"], d["ms_ops"]) > 0
+        assert d["pct_of_roofline"] == pytest.approx(
+            100 * d["ms_floor"] / d["measured_ms"])
     # floors must not exceed measured (the model is a LOWER bound).
     assert r["frame"]["ms_floor"] < 5.0 * 10  # sanity scale
 
@@ -48,14 +53,13 @@ def test_coarse_model_counts_records():
     assert b["bytes_moved"] > a["bytes_moved"]
 
 
-def test_hitfuse_gate():
-    from piet_tpu.renderer.renderer import HITFUSE_MIN_HITS, hitfuse_choice
-    small = _cfg(max_hits=HITFUSE_MIN_HITS // 2)
-    big = _cfg(max_hits=HITFUSE_MIN_HITS * 4)
-    assert hitfuse_choice(small, "pallas", False) == "off"
-    assert hitfuse_choice(big, "pallas", False) == "pallas"
-    assert hitfuse_choice(big, "xla", False) == "off"
-    assert hitfuse_choice(big, "pallas", True) == "off"
+def test_unknown_device_kind_raises():
+    """No peak rate is assumed for a device outside the table."""
+    assert peaks(H100) == PEAKS[H100]
+    with pytest.raises(ValueError, match="no published peaks"):
+        peaks("Unknown Accelerator 9000")
+    with pytest.raises(ValueError):
+        frame_roofline({}, _cfg(), None, None, 1.0, device_kind="cpu")
 
 
 def test_render_updated_partial_restage():

@@ -32,7 +32,7 @@ def _run(scene, wh, seg_pre):
         tile_w=cfg.tile_width, tile_h=cfg.tile_height,
         cmd_capacity=cfg.cmd_capacity, max_segments=cfg.max_segments,
         max_hits=cfg.max_hits, max_candidates=cfg.max_candidates,
-        max_deltas=cfg.max_deltas, output="entries", sort_impl="xla")
+        max_deltas=cfg.max_deltas, output="entries")
     return out
 
 
