@@ -23,8 +23,8 @@ Phases (one card):
    beziers_10k against the golden, clip/layer/gradient scenes against the
    numpy oracle, a short ``render_sequence``, and the on-card exactness
    tests of tests/test_gpu_exact.py, called in-process.
-5. timing -- ms/frame (median of samples, ``block_until_ready``) of every
-   benchmark scene through both fine pipelines.
+5. timing -- ms/frame of every benchmark scene through both fine
+   pipelines, timed as bench.py times it (``piet_tpu.gpu.time_render``).
 
 Each phase is a function that the CPU tests call at tiny sizes with
 ``interpret=True`` (tests/test_chip_smoke.py).
@@ -39,11 +39,9 @@ import time
 
 import numpy as np
 
-#: Frames per timing sample, and samples per measurement, of the GPU
-#: kernel's pipeline; the XLA interpreter's takes up to seconds a frame at
-#: 4K, so it is timed with XLA_FRAMES x XLA_SAMPLES.
-FRAMES = 10
-SAMPLES = 5
+#: The XLA interpreter takes up to seconds a frame at 4K, so its pipeline
+#: is timed with XLA_FRAMES x XLA_SAMPLES (the GPU kernel's with bench.py's
+#: piet_tpu.gpu.FRAMES x SAMPLES).
 XLA_FRAMES = 1
 XLA_SAMPLES = 3
 
@@ -87,14 +85,6 @@ def golden(scene, cfg) -> np.ndarray:
     return img
 
 
-def bench_config(scene, width: int, height: int):
-    from piet_tpu.config import RenderConfig
-    from piet_tpu.renderer.capacity import fit_capacities
-    return fit_capacities(scene, RenderConfig(width=width, height=height,
-                                              tile_height=32,
-                                              tile_width=128))
-
-
 def _sort_lowering(compiled) -> dict:
     """How the step's sorts were lowered: XLA:GPU hands a one-key +
     payload sort to CUB's radix sort as a custom call."""
@@ -128,6 +118,7 @@ def phase_device(jax) -> dict:
 def phase_kernel(scene, width: int, height: int, *,
                  interpret: bool = False) -> dict:
     """Both fine pipelines on one frame, each vs the C++ golden."""
+    from piet_tpu.gpu import bench_config
     from piet_tpu.renderer.renderer import make_render_fn, prepare_scene
     cfg = bench_config(scene, width, height)
     dev = prepare_scene(scene, cfg)
@@ -229,24 +220,19 @@ def phase_gpu_exact(device) -> dict:
     return {"passed": names}
 
 
-def phase_timing(scenes, *, interpret: bool = False,
-                 runs=((FRAMES, SAMPLES), (XLA_FRAMES, XLA_SAMPLES))) -> dict:
+def phase_timing(scenes, *, interpret: bool = False, runs=None) -> dict:
     """ms/frame of (a) entry stream + GPU kernel and (b) dense PTCL +
     fine_xla, per scene: scenes = [(name, scene, w, h)]; ``runs`` gives
     (frames, samples) for (a) and (b)."""
-    from piet_tpu.gpu import time_frames
-    from piet_tpu.renderer.renderer import make_render_fn, prepare_scene
+    from piet_tpu.gpu import FRAMES, SAMPLES, time_render
+    runs = runs or ((FRAMES, SAMPLES), (XLA_FRAMES, XLA_SAMPLES))
     out = {}
     for name, scene, w, h in scenes:
-        cfg = bench_config(scene, w, h)
-        dev = prepare_scene(scene, cfg)
-        row = {}
-        for (label, impl), (frames, samples) in zip(
-                (("kernel", "pallas"), ("xla", "xla")), runs):
-            fn = make_render_fn(cfg, interpret=interpret, fine_impl=impl)
-            row[label] = time_frames(lambda d: fn(d)[0], dev, frames,
-                                     samples)
-        out[name] = row
+        out[name] = {
+            label: time_render(scene, w, h, fine_impl=impl, frames=frames,
+                               samples=samples, interpret=interpret)
+            for (label, impl), (frames, samples) in zip(
+                (("kernel", "pallas"), ("xla", "xla")), runs)}
     return out
 
 
@@ -256,6 +242,7 @@ def phase_sharded(scene, width: int, height: int, devices, *,
     Renderer (bitwise) and the golden."""
     from jax.sharding import Mesh
 
+    from piet_tpu.gpu import bench_config
     from piet_tpu.parallel import ShardedRenderer
     from piet_tpu.renderer.renderer import Renderer
 
@@ -284,8 +271,6 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--chips", type=int, default=1, choices=(1, 4),
                     help="4: run only the row-sharded path on four cards")
-    ap.add_argument("--phases", default="kernel,coarse,main_path,timing",
-                    help="comma list of one-card phases to run")
     args = ap.parse_args(argv)
 
     import jax
@@ -307,28 +292,22 @@ def main(argv=None) -> int:
         emit("sharded", **phase_sharded(scene, w, h, devices))
     else:
         devices = devices[:1]
-        phases = args.phases.split(",")
-        if "kernel" in phases:
-            _, scene, w, h = bench("tiger_4k")
-            emit("kernel", scene="tiger_4k", **phase_kernel(scene, w, h))
-        if "coarse" in phases:
-            from tests.test_coarse import CASES
-            emit("coarse", **phase_coarse(CASES))
-        if "main_path" in phases:
-            from piet_tpu.scene.fixtures import (make_animated_frame,
-                                                 make_gradient_demo)
-            from tests.test_group_clips import _clip_scene, _nested_scene
-            small = [("clip_layer", _clip_scene(), 256, 256),
-                     ("nested_clips", _nested_scene(), 256, 256),
-                     ("gradients", make_gradient_demo(512), 512, 512)]
-            seq = ([make_animated_frame(t / 8.0) for t in range(4)],
-                   1024, 1024)
-            emit("main_path", **phase_main_path(
-                [bench("tiger_4k"), bench("beziers_10k")], small, seq))
-            emit("gpu_exact", **phase_gpu_exact(devices[0]))
-        if "timing" in phases:
-            emit("timing", card=dev_info["card"], **phase_timing(
-                [bench(n) for n in BENCH_SCENES]))
+        from piet_tpu.scene.fixtures import (make_animated_frame,
+                                             make_gradient_demo)
+        from tests.test_coarse import CASES
+        from tests.test_group_clips import _clip_scene, _nested_scene
+        _, scene, w, h = bench("tiger_4k")
+        emit("kernel", scene="tiger_4k", **phase_kernel(scene, w, h))
+        emit("coarse", **phase_coarse(CASES))
+        small = [("clip_layer", _clip_scene(), 256, 256),
+                 ("nested_clips", _nested_scene(), 256, 256),
+                 ("gradients", make_gradient_demo(512), 512, 512)]
+        seq = ([make_animated_frame(t / 8.0) for t in range(4)], 1024, 1024)
+        emit("main_path", **phase_main_path(
+            [bench("tiger_4k"), bench("beziers_10k")], small, seq))
+        emit("gpu_exact", **phase_gpu_exact(devices[0]))
+        emit("timing", card=dev_info["card"], **phase_timing(
+            [bench(n) for n in BENCH_SCENES]))
     print(dev_info["card"], flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": devices[0].platform, "kind": devices[0].device_kind,

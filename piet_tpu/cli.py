@@ -43,6 +43,17 @@ def _config_for(args, scene):
     return fit_capacities(scene, cfg, bucket=True)
 
 
+def _timed_device(args) -> dict:
+    """The device a timing runs on: a GPU, or the CPU only when ``--cpu``
+    asks for it (a timing never falls back to the CPU)."""
+    import jax
+
+    from .gpu import require_gpu
+    devices = jax.devices() if args.cpu else require_gpu(jax.devices())
+    return {"platform": devices[0].platform,
+            "kind": devices[0].device_kind, "count": len(devices)}
+
+
 def cmd_render(args) -> int:
     from .renderer.renderer import Renderer
     from .scene.scene import Scene
@@ -76,6 +87,7 @@ def cmd_bench(args) -> int:
     from .compile_cache import enable_compile_cache
     from .renderer.renderer import Renderer, prepare_scene
 
+    device = _timed_device(args)
     enable_compile_cache()
     scene = _build_scene(args)
     cfg = _config_for(args, scene)
@@ -122,6 +134,7 @@ def cmd_bench(args) -> int:
         "ms_per_frame": round(value, 3), "frames": args.frames,
         "reencode": bool(args.reencode),
         "fill_mpix_per_s": round(cfg.width * cfg.height / value / 1e3, 1),
+        "device": device,
     }))
     return 0
 
@@ -174,7 +187,8 @@ def cmd_animate(args) -> int:
             max_hits=max(cfg.max_hits, c.max_hits),
             max_candidates=max(cfg.max_candidates, c.max_candidates),
             max_deltas=max(cfg.max_deltas, c.max_deltas),
-            cmd_capacity=max(cfg.cmd_capacity, c.cmd_capacity))
+            cmd_capacity=max(cfg.cmd_capacity, c.cmd_capacity),
+            max_group_depth=max(cfg.max_group_depth, c.max_group_depth))
     renderer = Renderer(cfg, fine_impl=args.fine_impl)
 
     chunk = max(1, args.chunk)
@@ -341,18 +355,19 @@ def _animate_affine(args) -> int:
 
 
 def cmd_profile(args) -> int:
-    """Per-stage pipeline timing on the attached backend (see
+    """Per-stage pipeline timing on the GPU, or the CPU with ``--cpu`` (see
     piet_tpu/profiling.py for methodology)."""
     from .compile_cache import enable_compile_cache
     from .profiling import format_profile, profile_render
 
+    device = _timed_device(args)
     enable_compile_cache()
     scene = _build_scene(args)
     cfg = _config_for(args, scene)
     results = profile_render(scene, cfg, fine_impl=args.fine_impl,
                              reps=args.frames)
     print(format_profile(results))
-    print(json.dumps(results))
+    print(json.dumps({"device": device, "stages_ms": results}))
     return 0
 
 

@@ -18,10 +18,11 @@ paired streams (ops/pairing.py) need no separate kernel.  The dispatch is a
 chain of ``lax.cond`` (``scf.if`` on this route) with the dominant classes
 first.
 
-Clip and layer groups keep their stacks (MAX_GROUP_DEPTH coverage planes
-and saved-rgb planes per strip) in a scratch output in device memory: only
-group commands and draws under an open clip touch it, so strips without
-groups pay nothing for it.
+Clip and layer groups keep their stacks (``group_depth`` coverage planes
+and ``3 * group_depth`` saved-rgb planes per strip) in a scratch output in
+device memory: only group commands and draws under an open clip touch it.
+``group_depth`` is the scene's own nesting (RenderConfig.max_group_depth);
+at 0 the kernel has no scratch output and no group branches.
 
 Numerics: ``bar`` is an FMA-contraction barrier.  In interpret mode it is
 ``optimization_barrier``; compiled, it is an explicitly rounded
@@ -34,6 +35,7 @@ own, as the numpy oracle (raster/cpu_fine.py) rounds it.
 from __future__ import annotations
 
 import functools
+import math
 
 import jax
 import jax.numpy as jnp
@@ -47,20 +49,16 @@ from ..raster.ptcl import (CMD_BEGIN_CLIP, CMD_BEGIN_LAYER, CMD_CIRCLE,
                            CMD_DRAW_RAD_GRAD, CMD_END_CLIP, CMD_END_LAYER,
                            CMD_FILL, CMD_FILL_EDGE, CMD_LINE, CMD_SOLID,
                            CMD_STROKE, CMD_WIND)
-from ..scene.scene import MAX_GROUP_DEPTH
+from ..config import MAX_GROUP_DEPTH
 from .cmd_math import (DF2_INIT, clip_alpha, edge_delta, fill_delta,
                        ieee_sqrt, line_field_sq, make_commands,
                        make_grad_commands, pack_rgba8)
 
-#: Rows of a tile interpreted by one program.
+#: Rows of a tile interpreted by one program (fewer where the tile
+#: height is not a multiple: the largest power of two dividing both).
 STRIP_H = 8
 #: Warps per program.
 NUM_WARPS = 4
-
-D = MAX_GROUP_DEPTH
-#: Scratch planes per strip: clip coverage for depths 1..D, then the
-#: saved r, g, b of each layer level.
-STACK_PLANES = 4 * D
 
 
 def _asm_bar(x):
@@ -83,8 +81,13 @@ def _dispatch(cases, default, *ops):
 
 
 def _fine_kernel(first_ref, n_ref, solid_ref, row0_ref, stream_ref, out_ref,
-                 stack_ref, *, tile_h: int, tile_w: int, strip_h: int,
-                 tiles_x: int, interpret: bool):
+                 *stack, tile_h: int, tile_w: int, strip_h: int,
+                 tiles_x: int, depth: int, interpret: bool):
+    # stack: () at depth 0, else the (4 * depth, strip_h, tile_w) scratch
+    # planes: clip coverage for depths 1..depth, then the saved r, g, b of
+    # each layer level.
+    D = depth
+    stack_ref = stack[0] if stack else None
     bar = jax.lax.optimization_barrier if interpret else _asm_bar
     f32 = jnp.float32
     t = pl.program_id(0)
@@ -120,6 +123,8 @@ def _fine_kernel(first_ref, n_ref, solid_ref, row0_ref, stream_ref, out_ref,
 
         def cov_plane(cdep):
             """Current clip-stack coverage (exactly 1.0 with no open clip)."""
+            if not D:
+                return ones
             return jax.lax.cond(cdep > 0,
                                 lambda: stack_ref[jnp.maximum(cdep, 1) - 1],
                                 lambda: ones)
@@ -236,9 +241,11 @@ def _fine_kernel(first_ref, n_ref, solid_ref, row0_ref, stream_ref, out_ref,
         tail = ((CMD_DRAW_FILL, lift(5)), (CMD_STROKE, stroke),
                 (CMD_SOLID, lift(6)), (CMD_CIRCLE, lift(0)),
                 (CMD_DRAW_LIN_GRAD, grad(False)),
-                (CMD_DRAW_RAD_GRAD, grad(True)), (CMD_WIND, wind),
-                (CMD_BEGIN_CLIP, begin_clip), (CMD_END_CLIP, end_clip),
-                (CMD_BEGIN_LAYER, begin_layer), (CMD_END_LAYER, end_layer))
+                (CMD_DRAW_RAD_GRAD, grad(True)), (CMD_WIND, wind))
+        if D:
+            tail += ((CMD_BEGIN_CLIP, begin_clip), (CMD_END_CLIP, end_clip),
+                     (CMD_BEGIN_LAYER, begin_layer),
+                     (CMD_END_LAYER, end_layer))
 
         def body(e, st):
             tag0 = stream_ref[e, W_S0_TAG]
@@ -260,11 +267,11 @@ def _fine_kernel(first_ref, n_ref, solid_ref, row0_ref, stream_ref, out_ref,
 
 
 @functools.partial(jax.jit, static_argnames=("tile_h", "tile_w", "tiles_x",
-                                             "strip_h", "interpret"))
+                                             "group_depth", "interpret"))
 def fine_rasterize_entries(first: jax.Array, n_entries: jax.Array,
                            solid: jax.Array, stream: jax.Array, row0=0, *,
                            tile_h: int, tile_w: int, tiles_x: int,
-                           strip_h: int = STRIP_H,
+                           group_depth: int = MAX_GROUP_DEPTH,
                            interpret: bool = False) -> jax.Array:
     """Rasterize all tiles from an entry stream (CoarseEntries).
 
@@ -276,38 +283,40 @@ def fine_rasterize_entries(first: jax.Array, n_entries: jax.Array,
         empty-tile path.
       stream: (E, ENTRY_WORDS) f32 entry rows (layout/entry_stream.py).
       row0: first tile row of this shard's slab (traced OK).
-      strip_h: rows per program (clamped to the tile height).
+      group_depth: deepest clip/layer nesting in the stream (0: none);
+        deeper groups are clamped to it, so it must cover the scene.
 
     Returns:
       (T // tiles_x * tile_h, tiles_x * tile_w) uint32 packed RGBA8 pixels.
     """
     n_tiles = first.shape[0]
     tiles_y = n_tiles // tiles_x
-    strip_h = min(strip_h, tile_h)
-    if tile_h % strip_h or stream.shape[1] != ENTRY_WORDS:
-        raise ValueError(f"strip {strip_h} must divide tile_h {tile_h}; "
-                         f"stream rows must be {ENTRY_WORDS} words")
+    if stream.shape[1] != ENTRY_WORDS:
+        raise ValueError(f"stream rows must be {ENTRY_WORDS} words")
+    if not 0 <= group_depth <= MAX_GROUP_DEPTH:
+        raise ValueError(f"group_depth must be in [0, {MAX_GROUP_DEPTH}]")
+    strip_h = math.gcd(STRIP_H, tile_h)
     nst = tile_h // strip_h
     kernel = functools.partial(
         _fine_kernel, tile_h=tile_h, tile_w=tile_w, strip_h=strip_h,
-        tiles_x=tiles_x, interpret=interpret)
-    img, _ = pl.pallas_call(
+        tiles_x=tiles_x, depth=group_depth, interpret=interpret)
+    out_specs = [pl.BlockSpec((strip_h, tile_w),
+                              lambda t, s: ((t // tiles_x) * nst + s,
+                                            t % tiles_x))]
+    out_shape = [jax.ShapeDtypeStruct((tiles_y * tile_h, tiles_x * tile_w),
+                                      jnp.uint32)]
+    if group_depth:
+        planes = 4 * group_depth
+        out_specs.append(pl.BlockSpec((None, planes, strip_h, tile_w),
+                                      lambda t, s: (t * nst + s, 0, 0, 0)))
+        out_shape.append(jax.ShapeDtypeStruct(
+            (n_tiles * nst, planes, strip_h, tile_w), jnp.float32))
+    img, *_ = pl.pallas_call(
         kernel,
         grid=(n_tiles, nst),
         in_specs=[pl.BlockSpec()] * 5,
-        out_specs=[
-            pl.BlockSpec((strip_h, tile_w),
-                         lambda t, s: ((t // tiles_x) * nst + s,
-                                       t % tiles_x)),
-            pl.BlockSpec((None, STACK_PLANES, strip_h, tile_w),
-                         lambda t, s: (t * nst + s, 0, 0, 0)),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((tiles_y * tile_h, tiles_x * tile_w),
-                                 jnp.uint32),
-            jax.ShapeDtypeStruct((n_tiles * nst, STACK_PLANES, strip_h,
-                                  tile_w), jnp.float32),
-        ],
+        out_specs=out_specs,
+        out_shape=out_shape,
         backend="triton",
         compiler_params=plt.CompilerParams(num_warps=NUM_WARPS,
                                            num_stages=1),

@@ -153,7 +153,7 @@ def fit_capacities(scene, config: RenderConfig,
 
     Also sizes ``cmd_capacity`` (used by the dense/portable path; the
     entry-stream path has no per-tile capacity) from a per-tile command
-    upper bound."""
+    upper bound, and ``max_group_depth`` from the scene's own nesting."""
     n_segs, n_hits, n_cand, n_deltas, cmds_ub = count_records(scene, config)
     return dataclasses.replace(
         config,
@@ -163,4 +163,5 @@ def fit_capacities(scene, config: RenderConfig,
         max_hits=_round_cap(n_hits, bucket),
         max_candidates=_round_cap(n_cand, bucket),
         max_deltas=_round_cap(n_deltas, bucket),
-        cmd_capacity=_round_cap(cmds_ub, bucket))
+        cmd_capacity=_round_cap(cmds_ub, bucket),
+        max_group_depth=scene.group_depth)

@@ -38,10 +38,7 @@ TAG_CLIP = 5
 TAG_POP = 6
 TAG_LAYER = 7
 
-#: Maximum clip/layer nesting depth (sizes the fine kernels' plane stacks).
-MAX_GROUP_DEPTH = 4
-
-from ..config import THIN_LINE
+from ..config import MAX_GROUP_DEPTH, THIN_LINE
 
 
 #: Scene item flag bits (extensions beyond the reference wire format).
@@ -159,6 +156,13 @@ class Scene:
     @property
     def n_points(self) -> int:
         return int(self.points.shape[0])
+
+    @property
+    def group_depth(self) -> int:
+        """Deepest clip/layer nesting (pushes minus pops, in item order)."""
+        push = (self.tags == TAG_CLIP) | (self.tags == TAG_LAYER)
+        step = np.where(push, 1, np.where(self.tags == TAG_POP, -1, 0))
+        return int(np.cumsum(step).max(initial=0))
 
     def save(self, path: str) -> None:
         """Persist as .npz -- scene checkpointing for benchmark

@@ -11,8 +11,16 @@ import numpy as np
 import pytest
 
 import chip_smoke
+from piet_tpu import gpu
 from piet_tpu.gpu import require_gpu
 from piet_tpu.scene.svg import make_tiger
+
+
+@pytest.fixture
+def short_warmup(monkeypatch):
+    """Two warm-up samples: CPU samples of tiny scenes need not agree."""
+    monkeypatch.setattr(gpu, "WARMUP_S", 0.0)
+    monkeypatch.setattr(gpu, "WARMUP_MAX_S", 0.0)
 
 
 def test_device_check_refuses_cpu():
@@ -65,7 +73,7 @@ def test_phase_main_path_tiny():
         "dense_cmd_capacity"]
 
 
-def test_phase_timing_tiny():
+def test_phase_timing_tiny(short_warmup):
     out = chip_smoke.phase_timing(
         [("tiger", make_tiger(scale=0.3), 128, 64)], interpret=True,
         runs=((1, 2), (1, 1)))
@@ -73,6 +81,53 @@ def test_phase_timing_tiny():
     for label in ("kernel", "xla"):
         t = row[label]
         assert 0 < t["min_ms"] <= t["median_ms"] <= t["max_ms"]
+        assert t["warmup_samples"] == 2 and t["max_tile_cmds"] > 0
+
+
+class _Clock:
+    """A fake ``time`` whose clock only the timed function advances."""
+
+    def __init__(self, step_ms):
+        self.now, self.steps = 0.0, iter(step_ms)
+
+    def perf_counter(self):
+        return self.now
+
+    def run(self, _):
+        self.now += next(self.steps) / 1e3
+
+
+def test_time_frames_warms_up_until_samples_agree(monkeypatch):
+    """Slow first samples (clocks ramping) stay out of the measurement:
+    warm-up runs for WARMUP_S and until two samples agree."""
+    monkeypatch.setattr(gpu, "WARMUP_S", 0.05)
+    # One compile call, then 1-frame samples: 30, 20, 12, 10, 10 ms of
+    # warm-up (the last two agree, 0.082 s > WARMUP_S), then 3 samples.
+    clock = _Clock([500, 30, 20, 12, 10, 10, 10, 11, 9])
+    monkeypatch.setattr(gpu, "time", clock)
+    t = gpu.time_frames(clock.run, None, 1, 3)
+    assert t["warmup_samples"] == 5
+    assert t["median_ms"] == pytest.approx(10.0)
+    assert t["min_ms"] == pytest.approx(9.0)
+    assert t["max_ms"] == pytest.approx(11.0)
+
+
+def test_time_frames_warmup_is_bounded(monkeypatch):
+    """Samples that never agree end the warm-up at WARMUP_MAX_S."""
+    monkeypatch.setattr(gpu, "WARMUP_MAX_S", 0.095)
+    clock = _Clock([0] + [10, 20] * 50)
+    monkeypatch.setattr(gpu, "time", clock)
+    t = gpu.time_frames(clock.run, None, 1, 2)
+    assert t["warmup_samples"] == 7
+    assert t["min_ms"] == pytest.approx(10.0)
+    assert t["max_ms"] == pytest.approx(20.0)
+
+
+def test_no_phase_selection_option():
+    """The one-card run always runs every phase: the contract line means
+    all of them passed, so there is no option to pick phases."""
+    with pytest.raises(SystemExit):
+        chip_smoke.main(["--phases", "timing"])
 
 
 def test_phase_sharded_tiny():

@@ -2,7 +2,10 @@
 
 import os
 
+import json
+
 import numpy as np
+import pytest
 
 from piet_tpu.cli import main
 from piet_tpu.scene.fixtures import make_path_test
@@ -53,3 +56,22 @@ def test_cli_animate_writes_frames(tmp_path):
     assert all(im.shape == (256, 256, 4) for im in imgs)
     # Frames at different t must actually differ (it IS an animation).
     assert not np.array_equal(imgs[0], imgs[2])
+
+
+@pytest.mark.parametrize("cmd", ["bench", "profile"])
+def test_cli_timing_refuses_cpu_without_flag(cmd):
+    """A timing never falls back to the CPU: without a GPU it needs
+    ``--cpu``."""
+    with pytest.raises(RuntimeError, match="GPU"):
+        main([cmd, "--scene", "path_test", "--frames", "1"])
+
+
+def test_cli_bench_cpu_reports_device(capsys, monkeypatch):
+    from piet_tpu import compile_cache
+    monkeypatch.setattr(compile_cache, "enable_compile_cache", lambda: "")
+    rc = main(["--cpu", "bench", "--scene", "path_test", "--width", "128",
+               "--height", "128", "--fine-impl", "xla", "--frames", "1"])
+    assert rc == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["device"]["platform"] == "cpu"
+    assert out["device"]["count"] >= 1 and out["ms_per_frame"] > 0

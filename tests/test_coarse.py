@@ -76,7 +76,7 @@ CASES = [
           max_segments=1 << 15, max_hits=1 << 17, max_candidates=1 << 15,
           max_deltas=1 << 15)),
     # Wide tiles (16x128).
-    ("tiger_1x_tpu_tiles", lambda: make_tiger(scale=1.0),
+    ("tiger_1x_wide_tiles", lambda: make_tiger(scale=1.0),
      dict(width=224, height=224, tile_height=16, tile_width=128,
           cmd_capacity=2688, max_items=512, max_points=1 << 15,
           max_segments=1 << 15, max_hits=1 << 17, max_candidates=1 << 14,

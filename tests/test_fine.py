@@ -37,7 +37,7 @@ CASES = [
     ("tiger_1x", lambda: make_tiger(scale=1.0),
      dict(width=224, height=224, tile_height=16, tile_width=16,
           cmd_capacity=768)),
-    ("tiger_1x_tpu_tiles", lambda: make_tiger(scale=1.0),
+    ("tiger_1x_wide_tiles", lambda: make_tiger(scale=1.0),
      dict(width=224, height=224, tile_height=16, tile_width=128,
           cmd_capacity=2688)),
 ]

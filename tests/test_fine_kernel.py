@@ -18,7 +18,8 @@ import pytest
 
 from piet_tpu.layout.entry_stream import (ENTRY_WORDS, W_S0_ARG, W_S0_TAG,
                                           W_S1_ARG, W_S1_TAG)
-from piet_tpu.ops.fine import STRIP_H, fine_rasterize_entries
+from piet_tpu.config import MAX_GROUP_DEPTH, RenderConfig
+from piet_tpu.ops.fine import fine_rasterize_entries
 from piet_tpu.raster.ptcl import (CMD_DRAW_FILL, CMD_DRAW_LIN_GRAD,
                                   CMD_FILL, CMD_SOLID)
 
@@ -58,24 +59,25 @@ def _run(stream, first, n, solid=None, row0=0, **kw):
     return np.asarray(out)
 
 
-@pytest.mark.parametrize("tile_h,tile_w,strip_h", [
-    (32, 128, STRIP_H), (16, 16, 8), (4, 32, 8), (16, 128, 16)])
-def test_output_shape_and_strips(tile_h, tile_w, strip_h):
-    """Framebuffer layout for any strip split (strip_h clamps to the tile
-    height); every strip of a tile sees the same entries."""
+@pytest.mark.parametrize("tile_h,tile_w", [
+    (32, 128), (16, 16), (4, 32), (12, 128)])
+def test_output_shape_and_strips(tile_h, tile_w):
+    """Framebuffer layout for any tile height (a strip is STRIP_H rows, or
+    fewer where the tile height is not a multiple); every strip of a tile
+    sees the same entries."""
     stream = [_solid(1.0, 0.0, 0.0), _solid(0.0, 0.0, 1.0)]
     img = _run(stream, first=[0, 1, 0], n=[1, 1, 0], tile_h=tile_h,
-               tile_w=tile_w, tiles_x=3, strip_h=strip_h)
+               tile_w=tile_w, tiles_x=3)
     assert img.shape == (tile_h, 3 * tile_w) and img.dtype == np.uint32
     np.testing.assert_array_equal(img[:, :tile_w], 0xFF0000FF)
     np.testing.assert_array_equal(img[:, tile_w:2 * tile_w], 0xFFFF0000)
     np.testing.assert_array_equal(img[:, 2 * tile_w:], WHITE)
 
 
-def test_bad_strip_and_stream_width_rejected():
+def test_bad_stream_width_and_group_depth_rejected():
     with pytest.raises(ValueError):
         _run([_solid(1.0, 1.0, 1.0)], [0], [1], tile_h=16, tile_w=16,
-             tiles_x=1, strip_h=6)
+             tiles_x=1, group_depth=MAX_GROUP_DEPTH + 1)
     with pytest.raises(ValueError):
         fine_rasterize_entries(
             jnp.zeros(1, jnp.int32), jnp.ones(1, jnp.int32),
@@ -127,11 +129,11 @@ def test_paired_entries_match_unpaired():
     assert (a[:, 4:11] != WHITE).all() and (a[:, 12:] == WHITE).all()
 
 
-def _nested(kind):
-    from piet_tpu.scene.scene import MAX_GROUP_DEPTH, SceneBuilder
+def _nested(kind, depth=MAX_GROUP_DEPTH):
+    from piet_tpu.scene.scene import SceneBuilder
     b = SceneBuilder()
     b.fill([(0, 0), (128, 0), (128, 64), (0, 64)], 0x336699FF)
-    for d in range(MAX_GROUP_DEPTH):
+    for d in range(depth):
         if kind == "clip" or (kind == "mixed" and d % 2 == 0):
             m = 6 + 10 * d
             b.clip_path([(m, m), (128 - m, m + 3), (128 - m, 64 - m),
@@ -140,25 +142,73 @@ def _nested(kind):
             b.push_layer(0.8 - 0.15 * d)
         b.fill([(10 * d, 0), (128, 20 + 5 * d), (30, 64)],
                0xCC3311FF + (d << 16))
-    for _ in range(MAX_GROUP_DEPTH):
+    for _ in range(depth):
         b.pop()
+    # A group-free fill after the pops.
+    b.fill([(100, 40), (128, 40), (128, 64)], 0x11AA44FF)
     return b.build()
 
 
-@pytest.mark.parametrize("kind", ["clip", "layer", "mixed"])
-def test_max_group_depth_matches_oracle(kind):
-    """Clip and layer stacks at MAX_GROUP_DEPTH (the scratch planes)."""
+def _kernel_vs_oracle(scene):
     from piet_tpu.raster.cpu_fine import cpu_render_scene
     from piet_tpu.renderer.renderer import Renderer
     from tests._imgcmp import assert_images_match
 
-    scene = _nested(kind)
     r = Renderer.for_scene(scene, 128, 64, fine_impl="pallas",
                            interpret=True, tile_height=16, tile_width=32)
     img = r.render(scene)
     gold = cpu_render_scene(scene, r.config)
     assert_images_match(img, gold)
+    return r.config, gold
+
+
+@pytest.mark.parametrize("kind", ["clip", "layer", "mixed"])
+def test_max_group_depth_matches_oracle(kind):
+    """Clip and layer stacks at MAX_GROUP_DEPTH (the scratch planes)."""
+    cfg, gold = _kernel_vs_oracle(_nested(kind))
+    assert cfg.max_group_depth == MAX_GROUP_DEPTH
     assert len(np.unique(gold.reshape(-1, 4), axis=0)) > 4
+
+
+@pytest.mark.parametrize("kind,depth", [("mixed", 1), ("clip", 2),
+                                        ("layer", 3), ("clip", 0)])
+def test_stacks_sized_to_scene_depth(kind, depth):
+    """The config carries the scene's own nesting, and the kernel keeps
+    that many stack levels (none, and no scratch output, at 0)."""
+    cfg, _ = _kernel_vs_oracle(_nested(kind, depth))
+    assert cfg.max_group_depth == depth
+
+
+def test_depth_zero_kernel_equals_full_depth_kernel():
+    """Without groups the depth-0 kernel (no scratch planes, no group
+    branches) draws what the full-depth kernel draws."""
+    fill = _entry(CMD_FILL, (3.0, 0.0, 16.0, 0.0, 1.0))
+    draw = _entry(CMD_DRAW_FILL, (0.0, 0.2, 0.4, 0.6, 1.0, 0.0, 0.0, 0.0)
+                  + NO_CLIP)
+    stream = [fill, draw, _solid(0.5, 0.25, 1.0, 0.5)]
+    args = dict(first=[0, 2], n=[2, 1], tile_h=16, tile_w=16, tiles_x=2)
+    a = _run(stream, group_depth=0, **args)
+    b = _run(stream, group_depth=MAX_GROUP_DEPTH, **args)
+    np.testing.assert_array_equal(a, b)
+    assert (a != WHITE).any()
+
+
+def test_scene_deeper_than_config_rejected():
+    """Staging a scene whose groups nest deeper than the config's stacks
+    fails loudly (the kernel would clamp them)."""
+    from piet_tpu.renderer.capacity import fit_capacities
+    from piet_tpu.renderer.renderer import (SceneCapacityError, pack_scene,
+                                            prepare_scene)
+    scene = _nested("mixed", 2)
+    assert scene.group_depth == 2
+    cfg = fit_capacities(_nested("clip", 1), RenderConfig(
+        width=128, height=64, tile_height=16, tile_width=32))
+    assert cfg.max_group_depth == 1
+    for stage in (prepare_scene, pack_scene):
+        with pytest.raises(SceneCapacityError, match="max_group_depth"):
+            stage(scene, cfg)
+    with pytest.raises(ValueError):
+        RenderConfig(max_group_depth=MAX_GROUP_DEPTH + 1)
 
 
 def test_fine_impl_resolution(monkeypatch):

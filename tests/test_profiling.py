@@ -60,7 +60,10 @@ def test_probes_off_by_default():
     assert "probes" not in out.diag
 
 
-def test_profile_render_smoke():
+def test_profile_render_smoke(monkeypatch):
+    from piet_tpu import gpu
+    monkeypatch.setattr(gpu, "WARMUP_S", 0.0)
+    monkeypatch.setattr(gpu, "WARMUP_MAX_S", 0.0)
     scene, cfg = _tiny()
     results = profile_render(scene, cfg, fine_impl="xla", reps=2)
     assert "coarse_total" in results and "end_to_end" in results

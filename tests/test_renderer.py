@@ -35,7 +35,7 @@ CASES = [
                   max_segments=1024, max_hits=1 << 17,
                   max_candidates=1 << 14, max_deltas=1 << 12)),
     ("tiger_1x", lambda: make_tiger(scale=1.0), TIGER_CFG),
-    ("tiger_1x_tpu_tiles", lambda: make_tiger(scale=1.0),
+    ("tiger_1x_wide_tiles", lambda: make_tiger(scale=1.0),
      dataclasses.replace(TIGER_CFG, tile_width=128, cmd_capacity=2688,
                          max_candidates=1 << 14)),
 ]
